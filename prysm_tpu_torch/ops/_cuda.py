@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ctypes.  The build happens at
 first use, from the sources in the package only, into
 ``prysm_tpu_torch/_build/``; the library's file name carries a hash of the
-sources and flags, so an edited source builds anew and an unchanged one
-loads at once.  A failed build raises.
+flags, of its own source and of the local headers that source includes
+(``#include "..."``, followed through headers), so an edited source builds
+anew, an unchanged one loads at once, and one source's edit leaves the
+other libraries alone.  A failed build raises.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -36,10 +39,26 @@ def _nvcc():
                        '/usr/local/cuda/bin); the CUDA kernels cannot be built')
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name):
+    """``csrc/<name>.cu`` and every local header it includes, directly or not."""
+    todo, seen = [CSRC / f'{name}.cu'], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(path.parent / inc.decode()
+                    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def library_path(name):
     """Where the library built from ``csrc/<name>.cu`` lives."""
     h = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):
+    for src in sorted(_sources(name)):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f'lib{name}-{h.hexdigest()[:16]}.so'

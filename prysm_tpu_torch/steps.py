@@ -11,25 +11,35 @@ Counterparts, without any timing harness, of
   phase-retrieval gradient step.  With ``fused=True`` (the default) the
   OPD comes from ``zernike_sum_pallas``, which runs the CUDA kernels on
   the card; ``fused=False`` builds the mode stack instead, as the JAX
-  step does when its Pallas kernels are off.
+  step does when its Pallas kernels are off;
+* ``bench.py`` cfg5: a 6-wavelength Babinet Lyot coronagraph at a 512^2
+  pupil -> Q=1 focus -> RGGB mosaic -> detector exposure through the
+  noise kernel -> Malvar demosaic.
 
-Each builder returns a callable that takes the coefficients and returns
-the loss and its coefficient gradient (and, for cfg1, the MTF).
+``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
+the coefficients and returns the loss and its coefficient gradient (and,
+for cfg1, the MTF); ``build_cfg5_frame`` returns a callable that takes a
+seed and returns the demosaicked frame.
 """
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from .conf import complex_for
+from .bayer import composite_bayer, demosaic_malvar
+from .conf import config, complex_for
 from .coordinates import make_xy_grid, cart_to_polar
+from .detector import Detector
 from .geometry import circle_sdf, antialias
 from .ops.zernike import zernike_sum_pallas
 from .otf import mtf_from_psf
+from .parallel import plan_mdft_spectral
 from .polynomials import zernike_nm_seq, sum_of_2d_modes
-from .propagation import Wavefront, prepare_executor
+from .propagation import Wavefront, babinet, focus, prepare_executor
 
 __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
-           'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step']
+           'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step', 'CFG5_WVLS',
+           'CFG5_DETECTOR', 'build_cfg5_frame']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -156,3 +166,81 @@ def build_cfg2_step(pupil=None, plan=None, fused=True, *, N=1024,
         return _value_and_grad(loss, coefs)
 
     return step
+
+
+# bench.py cfg5: six wavelengths (um), the focal window and the detector
+CFG5_WVLS = tuple(float(w) for w in np.linspace(0.50, 0.60, 6))
+CFG5_WINDOW, CFG5_FOCAL_DX, CFG5_FPM_RADIUS, CFG5_LYOT_RADIUS = 32, 0.25, 2.5, 0.9
+CFG5_DETECTOR = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3,
+                     conversion_gain=0.5, bits=14, exposure_time=1e-2)
+# photons per unit of focal intensity, as bench.py scales the colour planes
+CFG5_PHOTONS = 3e9
+
+
+class _Cfg5Frame:
+    """The cfg5 camera frame; call it with a seed to get one (N, N, 3) frame.
+
+    The fixed pieces are made once: the wavelength-stacked MDFT plan to a
+    32^2 window around the occulter, the occulter ``fpm`` (0 inside the
+    2.5 um radius), the unit pupil ``amp``, the ``lyot`` stop of radius 0.9
+    and the ``detector``.  ``mosaic()`` is the deterministic part of the
+    chain (Babinet coronagraph, Q=1 focus, |E|^2 summed into R, G and B,
+    RGGB mosaic) and ``focal_planes()`` its per-wavelength intensities.
+    """
+
+    def __init__(self, N, dtype=None, device=None):
+        dtype = config.precision if dtype is None else dtype
+        dx = DIAMETER / N
+        self.N = N
+        # Babinet runs on the complement 1 - fpm, zero outside the occulting
+        # disk, so the focal window need only cover the disk (10 px radius)
+        fw = (np.arange(CFG5_WINDOW) - CFG5_WINDOW // 2) * CFG5_FOCAL_DX
+        fxw, fyw = np.meshgrid(fw, fw, indexing='xy')
+        self.plan = plan_mdft_spectral(dx, (N, N), CFG5_FOCAL_DX, CFG5_WINDOW, CFG5_WVLS, EFL,
+                                       dtype=complex_for(dtype), device=device)
+        dev = self.plan.Ex.device
+        self.fpm = torch.from_numpy(np.hypot(fxw, fyw) > CFG5_FPM_RADIUS).to(dev, dtype)
+        x, y = make_xy_grid(N, diameter=DIAMETER, dtype=dtype, device=dev)
+        r = torch.hypot(x, y)
+        self.amp = antialias(circle_sdf(1.0, r), dx)
+        self.lyot = antialias(circle_sdf(CFG5_LYOT_RADIUS, r), dx)
+        self.detector = Detector(**CFG5_DETECTOR)
+
+    def focal_planes(self):
+        """(6, N, N) focal intensities behind the coronagraph, one per wavelength."""
+        W = len(CFG5_WVLS)
+        E = self.amp.expand(W, self.N, self.N).to(complex_for(self.amp.dtype))
+        after = babinet(E, lyot=self.lyot, fpm=self.fpm, executor=self.plan)
+        at_focus = focus(after, Q=1)
+        return at_focus.real ** 2 + at_focus.imag ** 2
+
+    def mosaic(self, planes=None):
+        """The RGGB mosaic of the colour planes (the two longest wavelengths red)."""
+        if planes is None:
+            planes = self.focal_planes()
+        red = planes[4:].sum(dim=0) * CFG5_PHOTONS
+        grn = planes[2:4].sum(dim=0) * CFG5_PHOTONS
+        blu = planes[:2].sum(dim=0) * CFG5_PHOTONS
+        return composite_bayer(red, grn, grn, blu)
+
+    def __call__(self, seed=0):
+        """The demosaicked (N, N, 3) float32 frame of one exposure.
+
+        The JAX benchmark runs this chain under jit, where the scene is a
+        tracer and ``expose``'s 'auto' policy takes the fused kernel.  Here
+        the scene is concrete, and 'auto' would see its photon-starved
+        pixels (the occulted core) and take exact Poisson instead; the
+        frame therefore asks for the kernel, as the JAX frame gets it.
+        """
+        frame = self.detector.expose(self.mosaic(), seed=seed, method='fused')
+        return demosaic_malvar(frame.to(torch.float32))
+
+
+def build_cfg5_frame(N=512, dtype=None, device=None):
+    """cfg5: the coronagraph -> Bayer -> detector -> demosaic frame at an N^2 pupil.
+
+    Returns a callable ``frame(seed=0)`` giving the demosaicked (N, N, 3)
+    float32 frame; ``frame.mosaic()`` and ``frame.focal_planes()`` give the
+    deterministic part of the chain, ``frame.detector`` the detector.
+    """
+    return _Cfg5Frame(N, dtype=dtype, device=device)
