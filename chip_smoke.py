@@ -12,12 +12,18 @@ Phases, each of which raises on a failed check:
    ``csrc/noise.cu``, one nvcc each, started together; print the build
    times and each kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card: the
-   Zernike kernels in f32 at 1024^2, for two mode sets and both norms,
-   the coefficient cotangents also mode by mode, each against its own
-   size; the noise kernel on the cfg5 mean-electron map and on a 256^2
-   map at 1000 e- with 4 frames (the same Philox uniforms, so the DN agree
-   but for rare rounding ties), its zero-signal case, its reproducibility
-   and its moments against the analytic chain;
+   Zernike kernels in f32 at 1024^2, at 1023^2, on views that start off a
+   16-byte boundary and with angles past sincosf's fast range, for four
+   mode sets (6 modes in the 4-slot kernels; 45 in the 32-slot ones; the
+   66 to n = 10 and 34 radial orders to n = 66, each run by the 32-slot
+   kernels in two launches) and both norms, the coefficient cotangents
+   also mode by mode, each against its own size, bit-identical from run
+   to run, one device kernel per call (per piece of a longer program),
+   the largest |difference| for the kernels line taken over NMS6, the
+   main path's plan; the noise kernel on the cfg5 mean-electron map and on a 256^2 map
+   at 1000 e- with 4 frames (the same Philox uniforms, so the DN agree but
+   for rare rounding ties), its zero-signal case, its reproducibility and
+   its moments against the analytic chain;
 3. the main paths, each with every launch count set to 0 just before it
    and read just after:
    a. the cfg2 phase-retrieval step (1024^2 pupil -> 256^2 focal grid by
@@ -32,8 +38,13 @@ Phases, each of which raises on a failed check:
       focal intensities, mosaic and demosaic against f64 on the card, and
       the noise statistics of the frames' exposures;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
-   and busy share; ms per kernel call and per call of its plain version,
-   each kernel's bound;
+   and busy share; ms per kernel call cold (inputs evicted from L2) and
+   warm (inputs left in L2 by the call before), per call of its plain
+   version and of the one PyTorch call that computes the same function,
+   where there is one (the library yardstick); a one-element op's time
+   back to back and one torch.add over the forward's bytes, for scale;
+   each kernel's bound, the larger of its bytes over the HBM rate and its
+   fp32 or int32 operations, counted from its SASS, over the card's rate;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -55,6 +66,11 @@ import torch  # noqa: E402 (after the card is chosen)
 N, FN, STEPS = 1024, 256, 5
 SEED = 20260401
 NMS45 = tuple((n, m) for n in range(9) for m in range(-n, n + 1, 2))
+# plans longer than the largest compiled program, which run in two pieces:
+# the full set to n = 10 (cut at a group start) and one radial group of 34
+# orders (cut inside the group)
+NMS66 = tuple((n, m) for n in range(11) for m in range(-n, n + 1, 2))
+RADIAL34 = tuple((n, 0) for n in range(0, 68, 2))
 N5, SEEDS5 = 512, range(5)
 # the H100 SXM data sheet: HBM bytes/s and fp32 (non-tensor) operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -62,6 +78,8 @@ FP32_OPS_PER_S = 67e12
 # int32 operations/s: 64 INT32 lanes per SM (Hopper architecture white
 # paper) x 132 SMs x the 1.98 GHz that the fp32 figure implies
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# a cold call's inputs were last touched this many bytes of other inputs ago
+COLD_BYTES = 100e6
 KERNEL_ROWS = {
     # name: (source, TPU kernel it replaces, bytes moved per pixel)
     'zernike_fwd': ('zernike.cu', 'prysm_tpu/ops/zernike.py:108', 12),
@@ -73,6 +91,11 @@ KERNEL_ROWS = {
 # SASS along the path every cell takes (csrc/noise.cu says how): int32
 # instructions, and fp32 operations with an FFMA as two
 NOISE_INT_OPS, NOISE_FP32_OPS = 70, 80
+# fp32 operations per pixel of the Zernike kernels for NMS6, the plan that
+# phase 4 times, counted from their SASS along the path NMS6 takes
+# (csrc/zernike.cu says how), an FFMA as two: 353, 353 and 697 per quad
+ZERNIKE_FP32_OPS = {'zernike_fwd': 353 / 4, 'zernike_bwd_coefs': 353 / 4,
+                    'zernike_bwd_all': 697 / 4}
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -114,48 +137,109 @@ def synced(fn):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev):
+def misaligned(a, k):
+    """A copy of ``a`` in a contiguous view k floats past a 16-byte boundary."""
+    buf = torch.empty(a.numel() + k, dtype=a.dtype, device=a.device)
+    view = buf[k:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def zernike_grids(dev):
+    """(what, r, t, g): 1024^2, an odd 1023^2, 1024^2 in views off 16-byte boundaries,
+    and 1024^2 with t scaled past 105615, where sincosf leaves its fast path."""
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
+    gen = torch.Generator().manual_seed(SEED)
+    grids = []
+    for n in (N, N - 1):
+        r, t = cart_to_polar(*make_xy_grid(n, diameter=2.2, device=dev))
+        grids.append((f'{n}^2', r, t, torch.randn(n, n, generator=gen).to(dev)))
+    _, r, t, g = grids[0]
+    grids.append((f'{N}^2 r, t, g +4 B', misaligned(r, 1), misaligned(t, 1), misaligned(g, 1)))
+    grids.append((f'{N}^2 r, t, g +4/+8/+12 B', misaligned(r, 1), misaligned(t, 2),
+                  misaligned(g, 3)))
+    grids.append((f'{N}^2 t x 40000', r, t * 40000, g))
+    return grids
+
+
+def kernels_per_call(fn):
+    """Names of the device kernels one fn() call runs (torch.profiler), after a warm call."""
+    synced(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        synced(fn)
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def phase_kernels(dev):
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.polynomials import zernike_nm_seq
     from prysm_tpu_torch.steps import NMS6
 
-    gen = torch.Generator().manual_seed(SEED)
-    x, y = make_xy_grid(N, diameter=2.2, device=dev)
-    r, t = cart_to_polar(x, y)
-    g = torch.randn(N, N, generator=gen).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 2)
     worst = {k: 0.0 for k in KERNEL_ROWS}
-    for nms in (NMS6, NMS45):
-        for norm in (True, False):
-            plan = zk._plan(nms, norm)
-            c = torch.randn(len(nms), generator=gen).to(dev)
-            # a mode's cotangent <w_k Z_k, g> has the size of the root sum of
-            # squares of its terms; the high orders outside r=1 are far larger
-            # than the low ones, so each mode is also held to its own size
-            modes = zernike_nm_seq(nms, r.double(), t.double(), norm=norm)
-            scale = torch.sqrt(torch.sum((modes * g.double()) ** 2, dim=(-2, -1)))
-            del modes
-            cases = {
-                'zernike_fwd': ([zk._launch_fwd(plan, c, r, t)],
-                                [zk.zernike_fwd_plain(plan, c, r, t)], 1e-5),
-                'zernike_bwd_coefs': ([zk._launch_bwd_coefs(plan, r, t, g)],
-                                      [zk.zernike_bwd_coefs_plain(plan, r, t, g)], 1e-4),
-                'zernike_bwd_all': (zk._launch_bwd_all(plan, c, r, t, g),
-                                    zk.zernike_bwd_all_plain(plan, c, r, t, g), 1e-4),
-            }
-            torch.cuda.synchronize()
-            for name, (outs, refs, bar) in cases.items():
-                errs = [rel(o, p) for o, p in zip(outs, refs)]
-                if name != 'zernike_fwd':  # outs[0] is the (K,) coefficient cotangent
-                    errs.append(per_mode_rel(outs[0], refs[0], scale))
-                worst[name] = max(worst[name], *(float((o - p).abs().max())
-                                                 for o, p in zip(outs, refs)))
-                print(f'  {name:18s} K={len(nms):2d} norm={norm!s:5s} '
-                      f'max rel err {max(errs):.3e} (bar {bar:g})', flush=True)
-                require(max(errs) <= bar, f'{name} disagrees with its plain version')
-            again = synced(lambda: zk._launch_bwd_coefs(plan, r, t, g))
-            require(torch.equal(again, cases['zernike_bwd_coefs'][0][0]),
-                    'zernike_bwd_coefs is not bit-identical from run to run')
+    buckets = zk._buckets()
+    print(f'  compiled program sizes: {buckets}', flush=True)
+    pieces = {}
+    for nms, want, n_pieces in ((NMS6, buckets[0], 1), (NMS45, buckets[-1], 1),
+                                (NMS66, buckets[-1], 2), (RADIAL34, buckets[-1], 2)):
+        plan = zk._plan(nms, True)
+        kmax = zk._bucket(len(zk._program(plan)), buckets)
+        blobs, rows = zk._params(plan, kmax)
+        pieces[nms] = len(blobs)
+        require(kmax == want and len(blobs) == n_pieces,
+                f'{len(nms)} modes took {len(blobs)} launches of the {kmax}-slot kernels, '
+                f'not {n_pieces} of the {want}-slot ones')
+        print(f'  {len(nms)} modes: {len(zk._program(plan))} slots, {len(blobs)} launches of '
+              f'the {kmax}-slot kernels, {len(blobs[0])} bytes of parameters each, '
+              f'{len(rows)} prologue rows', flush=True)
+    for what, r, t, g in zernike_grids(dev):
+        head, quads, tail = zk._span(r.data_ptr(), r.numel())
+        print(f'  grid {what}: head {head}, quads {quads}, tail {tail}', flush=True)
+        for nms in pieces:
+            for norm in (True, False):
+                plan = zk._plan(nms, norm)
+                c = torch.randn(len(nms), generator=gen).to(dev)
+                # a mode's cotangent <w_k Z_k, g> has the size of the root sum of
+                # squares of its terms; the high orders outside r=1 are far larger
+                # than the low ones, so each mode is also held to its own size
+                modes = zernike_nm_seq(nms, r.double(), t.double(), norm=norm)
+                scale = torch.sqrt(torch.sum((modes * g.double()) ** 2, dim=(-2, -1)))
+                del modes
+                cases = {
+                    'zernike_fwd': ([zk._launch_fwd(plan, c, r, t)],
+                                    [zk.zernike_fwd_plain(plan, c, r, t)], 1e-5),
+                    'zernike_bwd_coefs': ([zk._launch_bwd_coefs(plan, r, t, g)],
+                                          [zk.zernike_bwd_coefs_plain(plan, r, t, g)], 1e-4),
+                    'zernike_bwd_all': (zk._launch_bwd_all(plan, c, r, t, g),
+                                        zk.zernike_bwd_all_plain(plan, c, r, t, g), 1e-4),
+                }
+                torch.cuda.synchronize()
+                for name, (outs, refs, bar) in cases.items():
+                    errs = [rel(o, p) for o, p in zip(outs, refs)]
+                    if name != 'zernike_fwd':  # outs[0] is the (K,) coefficient cotangent
+                        errs.append(per_mode_rel(outs[0], refs[0], scale))
+                    if nms == NMS6:  # the main path's plan: the kernels line's max |diff|
+                        worst[name] = max(worst[name], *(float((o - p).abs().max())
+                                                         for o, p in zip(outs, refs)))
+                    print(f'  {name:18s} K={len(nms):2d} norm={norm!s:5s} '
+                          f'max rel err {max(errs):.3e} (bar {bar:g})', flush=True)
+                    require(max(errs) <= bar, f'{name} disagrees with its plain version '
+                                              f'on {what}')
+                again = synced(lambda: zk._launch_bwd_coefs(plan, r, t, g))
+                require(torch.equal(again, cases['zernike_bwd_coefs'][0][0]),
+                        f'zernike_bwd_coefs is not bit-identical from run to run on {what}')
+    # one launch per call (per piece): no second reduction kernel, no fill
+    _, r, t, g = zernike_grids(dev)[0]
+    for nms in (NMS6, NMS66):
+        plan, c = zk._plan(nms, True), torch.randn(len(nms), generator=gen).to(dev)
+        for name, fn in (('zernike_fwd', lambda: zk._launch_fwd(plan, c, r, t)),
+                         ('zernike_bwd_coefs', lambda: zk._launch_bwd_coefs(plan, r, t, g)),
+                         ('zernike_bwd_all', lambda: zk._launch_bwd_all(plan, c, r, t, g))):
+            names = kernels_per_call(fn)
+            print(f'  {name} K={len(nms)}: device kernels per call {names}', flush=True)
+            require(len(names) == pieces[nms], f'{name} ran {len(names)} device kernels per '
+                                               f'call for {len(nms)} modes, not {pieces[nms]}')
     return worst
 
 
@@ -417,16 +501,18 @@ def check_cfg5(frames, per_frame, frame5, dev):
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
-def device_ms(fn, runs=25, inner=10):
-    """Median device time of one fn() call, in ms.
+def device_ms(calls, runs=25):
+    """Median device time of one call, in ms, over runs of ``calls`` back to back.
 
     A sleep kernel ahead of each run holds the card while the host
     enqueues the run, so the events bracket back-to-back device work and
     not the host's launch rate.
     """
-    synced(fn)
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(inner):
+    for fn in calls:
         fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -436,12 +522,29 @@ def device_ms(fn, runs=25, inner=10):
         torch.cuda._sleep(cycles)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(inner):
+        for fn in calls:
             fn()
         e1.record()
         torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / inner)
+        times.append(e0.elapsed_time(e1) / len(calls))
     return statistics.median(times)
+
+
+def warm_ms(fn, inner=10):
+    """fn's time with its inputs left in L2 by the call before."""
+    return device_ms([fn] * inner)
+
+
+def cold_ms(fn, tensors):
+    """fn(*tensors)'s time with its inputs evicted from L2 before each call.
+
+    The calls rotate over copies of ``tensors`` that hold more than 100 MB
+    in all, twice the H100's 50 MB L2: each copy was last touched that far
+    back, so each call reads its inputs from HBM.
+    """
+    size = sum(x.numel() * x.element_size() for x in tensors)
+    sets = [tuple(x.clone() for x in tensors) for _ in range(int(COLD_BYTES // size) + 1)]
+    return device_ms([lambda s=s: fn(*s) for s in sets])
 
 
 def step_ms(fns, runs=40, warmup=5):
@@ -484,23 +587,11 @@ def device_breakdown(fn, steps=10, top=5):
                       for e in events[:top]]
 
 
-def ops_per_pixel(plan, name):
-    """fp32 operations one pixel costs, counted from csrc/zernike.cu (FMA = 2)."""
-    groups, K = plan.groups, len(plan.modes)
-    am_steps = max(am for am, *_ in groups)
-    rec_steps = sum(nmax for _, nmax, *_ in groups)
-    setup = 4 + 20 + 7 * am_steps          # x, 4r, sincosf (~20), angle/r^m steps
-    if name == 'zernike_fwd':
-        return setup + 5 * rec_steps + 4 * K
-    if name == 'zernike_bwd_coefs':
-        return setup + 5 * rec_steps + 3 * K + 5 * K / 32 + 8 * K / 256
-    return setup + 11 * rec_steps + 20 * K + 5 * K / 32 + 8 * K / 256
-
-
 def phase_timing(dev, smi, frame5):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.polynomials import zernike_nm_seq
     from prysm_tpu_torch.steps import (NMS6, make_pupil, make_cfg2_plan,
                                        build_cfg1_step, build_cfg2_step)
 
@@ -531,44 +622,75 @@ def phase_timing(dev, smi, frame5):
     for prec in ('high', None):
         plan = make_cfg2_plan(pupil, FN, matmul_precision=prec)
         a = field.to(dev, torch.complex64)
-        print(f'{smi} | mdft_fwd_{prec or "fp32"}_ms {device_ms(lambda: plan(a)):.4f} '
+        print(f'{smi} | mdft_fwd_{prec or "fp32"}_ms {warm_ms(lambda: plan(a)):.4f} '
               f'rel_err {rel(plan(a), exact):.3e}', flush=True)
 
     x, y = make_xy_grid(N, diameter=2.2, device=dev)
     r, t = cart_to_polar(x, y)
     g = torch.randn(N, N, generator=gen).to(dev)
+    # what any call costs here: a one-element op back to back, and one
+    # PyTorch pass over the forward's 12.6 MB (read r and t, write a map)
+    tiny, out = torch.zeros(1, device=dev), torch.empty_like(r)
+    copy = lambda r, t: torch.add(r, t, out=out)  # noqa: E731
+    print(f'{smi} | launch_floor_ms {warm_ms(lambda: tiny.add_(1)):.5f}; '
+          f'add_r_t_ms cold {cold_ms(copy, (r, t)):.5f} warm {warm_ms(lambda: copy(r, t)):.5f}',
+          flush=True)
     plan = zk._plan(NMS6, True)
     c = pupil.coefs
+    # the library yardstick: one tensordot over the f32 (K, N, N) mode stack
+    # that the port's mode-stack path builds (polynomials/fitting.py); the
+    # port never calls it on the kernels' path
+    stack = zernike_nm_seq(NMS6, r, t)
+    library = {
+        'zernike_fwd': (lambda s, g: torch.tensordot(c, s, dims=([0], [0])), 1e-5),
+        'zernike_bwd_coefs': (lambda s, g: torch.tensordot(s, g, dims=([1, 2], [0, 1])), 1e-4),
+    }
     calls = {
-        'zernike_fwd': (lambda: zk._launch_fwd(plan, c, r, t),
-                        lambda: zk.zernike_fwd_plain(plan, c, r, t)),
-        'zernike_bwd_coefs': (lambda: zk._launch_bwd_coefs(plan, r, t, g),
-                              lambda: zk.zernike_bwd_coefs_plain(plan, r, t, g)),
-        'zernike_bwd_all': (lambda: zk._launch_bwd_all(plan, c, r, t, g),
-                            lambda: zk.zernike_bwd_all_plain(plan, c, r, t, g)),
+        # name: (kernel(*inputs), plain(*inputs), inputs)
+        'zernike_fwd': (lambda r, t: zk._launch_fwd(plan, c, r, t),
+                        lambda r, t: zk.zernike_fwd_plain(plan, c, r, t), (r, t)),
+        'zernike_bwd_coefs': (lambda r, t, g: zk._launch_bwd_coefs(plan, r, t, g),
+                              lambda r, t, g: zk.zernike_bwd_coefs_plain(plan, r, t, g),
+                              (r, t, g)),
+        'zernike_bwd_all': (lambda r, t, g: zk._launch_bwd_all(plan, c, r, t, g),
+                            lambda r, t, g: zk.zernike_bwd_all_plain(plan, c, r, t, g),
+                            (r, t, g)),
     }
     work = {name: (KERNEL_ROWS[name][2] * N * N,
-                   ops_per_pixel(plan, name) * N * N / FP32_OPS_PER_S)
+                   ZERNIKE_FP32_OPS[name] * N * N / FP32_OPS_PER_S)
             for name in calls}
     # the noise kernel at cfg5's shape: the 512^2 mean-electron map, one frame
     det = frame5.detector
     lam5 = det._mean_electrons(frame5.mosaic())
-    calls['noise_expose'] = (lambda: noise._launch(lam5, 1, 0, *noise_args(det)),
-                             lambda: noise.expose_plain(lam5, 1, 0, *noise_args(det)))
+    calls['noise_expose'] = (lambda lam: noise._launch(lam, 1, 0, *noise_args(det)),
+                             lambda lam: noise.expose_plain(lam, 1, 0, *noise_args(det)),
+                             (lam5,))
     cells = lam5.numel()
     work['noise_expose'] = (8 * cells, max(NOISE_INT_OPS * cells / INT32_OPS_PER_S,
                                            NOISE_FP32_OPS * cells / FP32_OPS_PER_S))
     kernels = {}
-    for name, (kernel, plain) in calls.items():
+    for name, (kernel, plain, args) in calls.items():
         bytes_moved, ops_s = work[name]
         bound = {'bytes': bytes_moved / HBM_BYTES_PER_S * 1e3, 'operations': ops_s * 1e3}
         bound_by = max(bound, key=bound.get)
-        kernels[name] = {'ms': device_ms(kernel), 'plain_ms': device_ms(plain, inner=2),
-                         'bound_ms': bound[bound_by], 'bound_by': bound_by}
-        k = kernels[name]
-        print(f'{smi} | {name} {k["ms"]:.5f} ms/call, plain {k["plain_ms"]:.4f} ms, '
-              f'bound {k["bound_ms"]:.5f} ms ({bound_by}; bytes {bound["bytes"]:.5f} ms, '
-              f'operations {bound["operations"]:.5f} ms)', flush=True)
+        k = kernels[name] = {
+            'ms': cold_ms(kernel, args), 'warm_ms': warm_ms(lambda: kernel(*args)),
+            'plain_ms': device_ms([lambda: plain(*args)] * 2),
+            'bound_ms': bound[bound_by], 'bound_by': bound_by,
+            'library_ms': None, 'library_warm_ms': None}
+        line = (f'{smi} | {name} cold {k["ms"]:.5f} warm {k["warm_ms"]:.5f} ms/call, '
+                f'plain {k["plain_ms"]:.4f} ms, bound {k["bound_ms"]:.5f} ms ({bound_by}; '
+                f'bytes {bound["bytes"]:.5f} ms, operations {bound["operations"]:.5f} ms)')
+        if name in library:
+            fn, bar = library[name]
+            err = rel(fn(stack, g), kernel(*args))
+            require(err <= bar, f'the library yardstick of {name} computes another function '
+                                f'({err:.3e})')
+            k['library_ms'] = cold_ms(fn, (stack, g))
+            k['library_warm_ms'] = warm_ms(lambda: fn(stack, g))
+            line += (f'; library cold {k["library_ms"]:.5f} warm {k["library_warm_ms"]:.5f} ms '
+                     f'(rel diff {err:.2e})')
+        print(line, flush=True)
     return kernels
 
 
@@ -639,7 +761,7 @@ def main():
 
     rows = [{'name': name, 'route': 'cuda', 'source': f'prysm_tpu_torch/csrc/{src}',
              'replaces': replaces, 'launches': launches[name],
-             'max_abs_err': worst[name], **kernels[name], 'library_ms': None}
+             'max_abs_err': worst[name], **kernels[name]}
             for name, (src, replaces, _) in KERNEL_ROWS.items()]
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -4,11 +4,18 @@ Counterpart of ``prysm_tpu/ops/zernike.py``.  ``zernike_sum_pallas``
 computes ``sum_k coefs[k] * Z_{nms[k]}(r, t)`` without materializing the
 (K, N, N) mode stack, with exact gradients:
 
-* forward: ``csrc/zernike.cu`` fwd_kernel (replaces ``_fwd_kernel``);
-* ``grads='coefs'`` backward: bwd_kernel<false> + reduce_kernel (replaces
+* forward: ``csrc/zernike.cu`` zernike_kernel in mode kFwd (replaces
+  ``_fwd_kernel``);
+* ``grads='coefs'`` backward: mode kCoefs, one launch (replaces
   ``_bwd_coefs_kernel``); the r and t cotangents are declared zero;
-* ``grads='all'`` backward: bwd_kernel<true> + reduce_kernel (replaces
-  ``_bwd_kernel``).
+* ``grads='all'`` backward: mode kAll, one launch (replaces ``_bwd_kernel``).
+
+The host side of a launch lives here: the plan compiled to the kernel's
+walk program (``_program``), the compiled program size that runs it
+(``_bucket``), a program longer than the largest cut into pieces, one
+launch each (``_chunks``), each packed as the kernel's by-value parameter
+(``_params``), the pixel partition (``_span``) and the per-stream ticket
+of the coefficient reduction (``_ticket``).
 
 The choice is made on the tensors' device: CUDA tensors launch the
 kernels, CPU tensors take the plain PyTorch versions below.  There is no
@@ -25,6 +32,7 @@ import itertools
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -174,8 +182,15 @@ def zernike_bwd_all_plain(plan, coefs, r, t, g):
 # kernel wrappers (CUDA tensors)
 # ---------------------------------------------------------------------------
 
+# kernel modes (csrc/zernike.cu Mode)
+_MODES = {'zernike_fwd': 0, 'zernike_bwd_coefs': 1, 'zernike_bwd_all': 2}
+# what a slot does before it uses its modes (csrc/zernike.cu kTurn, kReset,
+# kStep), and its two uses
+_TURN, _RESET, _STEP, _COS, _SIN = 1, 2, 4, 8, 16
+# the (A, B, C) of a slot that takes no recurrence step: P_n+1 = P_n
+_NO_STEP = (0.0, 1.0, 0.0)
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TABLE = [_P, _P, _P, _P, _I, _I, _I]
 
 
 @lru_cache(None)
@@ -183,10 +198,10 @@ def _lib():
     lib = _cuda.load('zernike')
     signatures = {
         'prysm_zernike_block_threads': ([], _I),
-        'prysm_zernike_shared_bytes': ([_I, _I, _I], _LL),
-        'prysm_zernike_fwd': ([_P, _P, _P, _P, _LL, *_TABLE, _P], _I),
-        'prysm_zernike_bwd_coefs': ([_P, _P, _P, _P, _P, _LL, *_TABLE, _P], _I),
-        'prysm_zernike_bwd_all': ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, *_TABLE, _P], _I),
+        'prysm_zernike_buckets': ([ctypes.POINTER(_I), _I], _I),
+        'prysm_zernike_resident_blocks': ([_I, _I, _I], _I),
+        'prysm_zernike_launch': ([_I, _I, _P, _LL, _LL, _LL, _LL, _I, _I,
+                                  *[_P] * 11], _I),
     }
     for fn, (argtypes, restype) in signatures.items():
         getattr(lib, fn).argtypes = argtypes
@@ -194,39 +209,176 @@ def _lib():
     return lib
 
 
-# a block may hold at most this much shared memory without opting in
-_MAX_SHARED = 48 * 1024
+@lru_cache(None)
+def _buckets():
+    """The program sizes the kernels are compiled for, smallest first (from the library)."""
+    out = (_I * 16)()
+    n = _lib().prysm_zernike_buckets(out, len(out))
+    return tuple(out[:n])
 
 
-class _DeviceTable(NamedTuple):
-    gi: torch.Tensor
-    mi: torch.Tensor
-    w: torch.Tensor
-    abc: torch.Tensor
+@lru_cache(256)
+def _program(plan):
+    """The plan as the kernels' walk program: (op, |m|, (cos index, w), (sin index, w), (A, B, C)) per slot.
 
-    def args(self):
-        return [self.gi.data_ptr(), self.mi.data_ptr(), self.w.data_ptr(),
-                self.abc.data_ptr(), self.gi.shape[0], self.mi.shape[0],
-                self.abc.shape[0]]
+    The walk's events, in the order _walk takes them (a turn per unit rise
+    of |m|, a reset per group, a step per Jacobi row, a use per mode, the
+    cos mode of an n_j before its sin mode), are packed into slots, each of
+    which takes at most one event of each kind, in the order turn, reset,
+    step, cos use, sin use (at |m| = 0 the radial mode is the cos use).  A
+    missing use has index -1 and w 0; a slot with no step has (A, B, C) =
+    (0, 1, 0), the step that leaves P as it is.
+    """
+    events, am = [], 0
+    for gam, _, first, end, ab in plan.groups:
+        events += [(_TURN,)] * (gam - am)
+        am = gam
+        events.append((_RESET,))
+        n = 0
+        # a group's modes in n_j order, cos before sin (Python's sort is stable)
+        for j in sorted(range(first, end), key=lambda j: (plan.modes[j][1], -plan.modes[j][2])):
+            idx, nj, sign = plan.modes[j]
+            events += [(_STEP, plan.abc[ab + k]) for k in range(n, nj)]
+            n = nj
+            events.append((_COS if sign > 0 else _SIN, (idx, plan.weights[j])))
+    slots, last, am = [], _SIN, 0
+    for kind, *rest in events:
+        if kind <= last:  # this slot has done this kind, or a later one
+            slots.append([0, am, (-1, 0.0), (-1, 0.0), _NO_STEP])
+        slot, last = slots[-1], kind
+        if kind == _TURN:
+            am += 1
+            slot[1] = am
+        if kind == _STEP:
+            slot[4] = rest[0]
+        if kind in (_TURN, _RESET, _STEP):
+            slot[0] |= kind
+        else:
+            slot[2 if kind == _COS else 3] = rest[0]
+    return tuple(tuple(slot) for slot in slots)
 
 
-@lru_cache(64)
-def _device_table(plan, device):
-    """The plan's tables on ``device``: built in float64 on the host, cast to f32, kept."""
-    G, K, R = len(plan.groups), len(plan.modes), len(plan.abc)
-    need = _lib().prysm_zernike_shared_bytes(G, K, R)
-    if need > _MAX_SHARED:
-        raise ValueError(f'{K} modes need {need} bytes of shared memory per block; '
-                         f'the kernels take at most {_MAX_SHARED}')
+def _bucket(n_slots, buckets):
+    """The smallest program size in buckets that holds n_slots; the largest for a longer program."""
+    return next((kmax for kmax in buckets if n_slots <= kmax), buckets[-1])
 
-    def dev(values, dtype, shape):
-        return torch.tensor(values, dtype=torch.float64 if dtype.is_floating_point
-                            else dtype).reshape(shape).to(device=device, dtype=dtype)
 
-    return _DeviceTable(gi=dev(plan.groups, torch.int32, (G, 5)),
-                        mi=dev(plan.modes, torch.int32, (K, 3)),
-                        w=dev(plan.weights, torch.float32, (K,)),
-                        abc=dev(plan.abc, torch.float32, (R, 3)))
+class _Piece(NamedTuple):
+    """Slots of the walk program that one launch runs, and where the walk stands before them.
+
+    turns: angle turns of the prologue (|m| before the first slot)
+    rows: (A, B, C) of the recurrence steps the prologue takes after its reset
+    slots: the program's slots, at most the program size
+    """
+    turns: int
+    rows: tuple
+    slots: tuple
+
+
+def _uses(slot):
+    return slot[2][0] >= 0 or slot[3][0] >= 0
+
+
+@lru_cache(256)
+def _chunks(prog, kmax):
+    """The walk program cut into pieces of at most kmax slots, one launch each.
+
+    A program that fits is one piece with an empty prologue.  A longer one
+    is cut before the last group start (a slot that turns or resets) within
+    kmax slots of the piece's first, or after kmax slots where there is
+    none.  Slots that use no mode at a piece's start go into its prologue,
+    and at its end are dropped.  The prologue replays the walk to where the
+    slots before the piece leave it: the turns (the same angle additions),
+    a reset, and the steps of the group in progress.
+    """
+    if len(prog) <= kmax:
+        return (_Piece(0, (), prog),)
+    pieces, s = [], 0
+    while s < len(prog):
+        while not _uses(prog[s]):  # the program's last slot uses a mode
+            s += 1
+        end = min(s + kmax, len(prog))
+        if end < len(prog):
+            starts = [b for b in range(s + 1, end + 1) if prog[b][0] & (_TURN | _RESET)]
+            end = starts[-1] if starts else end
+        reset = max(j for j in range(s + 1) if prog[j][0] & _RESET)
+        rows = tuple(prog[j][4] for j in range(reset, s) if prog[j][0] & _STEP)
+        last = max(j for j in range(s, end) if _uses(prog[j]))
+        pieces.append(_Piece(prog[s - 1][1] if s else 0, rows, prog[s:last + 1]))
+        s = end
+    return tuple(pieces)
+
+
+@lru_cache(256)
+def _params(plan, kmax):
+    """(blobs, rows): the plan's pieces packed as csrc/zernike.cu Params<kmax>, one per launch.
+
+    A blob: int32 K (slots), turns, pre (prologue steps), pre_at (their
+    first row) and add (1 after the first piece); int32 op and |m| per
+    slot, int32 cos and sin index per slot, float32 cos and sin w per slot,
+    float32 (A, B, C) per slot; little-endian, no padding between fields.
+    The slots past K, up to kmax, are never run.  rows: the float32 (n, 3)
+    table of every piece's prologue steps, in piece order.  w and (A, B, C)
+    are made in float64 and rounded to float32.
+    """
+    blobs, rows = [], []
+    for i, piece in enumerate(_chunks(_program(plan), kmax)):
+        K = len(piece.slots)
+        ints = np.zeros((2, kmax), '<i4')
+        idx = np.full((kmax, 2), -1, '<i4')
+        w = np.zeros((kmax, 2), '<f4')
+        abc = np.tile(np.array(_NO_STEP, '<f4'), (kmax, 1))
+        for j, (op, am, cos, sin, row) in enumerate(piece.slots):
+            ints[:, j] = op, am
+            idx[j] = cos[0], sin[0]
+            w[j] = np.array([cos[1], sin[1]], np.float64)
+            abc[j] = np.array(row, np.float64)
+        head = np.array([K, piece.turns, len(piece.rows), len(rows), int(i > 0)], '<i4')
+        blobs.append(b''.join(a.tobytes() for a in (head, ints, idx, w, abc)))
+        rows += piece.rows
+    return tuple(blobs), np.array(rows, np.float64).astype('<f4').reshape(-1, 3)
+
+
+@lru_cache(256)
+def _device_rows(plan, kmax, device):
+    """_params's prologue table on the device, or None when no piece has a prologue step."""
+    rows = _params(plan, kmax)[1]
+    return torch.from_numpy(rows).to(device) if len(rows) else None
+
+
+def _span(ptr, npix):
+    """(head, quads, tail): the kernels' partition of npix float32 pixels at address ptr.
+
+    head pixels come before the first 16-byte-aligned one, then whole
+    quads of 4, then the tail; head and tail are each 0-3 pixels.
+    """
+    head = min((-ptr % 16) // 4, npix)
+    quads = (npix - head) // 4
+    return head, quads, npix - head - 4 * quads
+
+
+def _vec_bits(ptrs, head):
+    """Bit a set where ptrs[a] is 16-byte aligned at pixel head (None: not there)."""
+    return sum(1 << a for a, p in enumerate(ptrs) if p is not None and (p + 4 * head) % 16 == 0)
+
+
+@lru_cache(None)
+def _resident_blocks(device_index, mode, kmax):
+    n = _lib().prysm_zernike_resident_blocks(mode, kmax, device_index)
+    if n <= 0:
+        raise RuntimeError(f'zernike kernel occupancy query failed ({n})')
+    return n
+
+
+# one ticket per (device, stream): csrc/zernike.cu's last block resets it to 0
+_TICKETS = {}
+
+
+def _ticket(device):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def _f32(x, device):
@@ -237,60 +389,62 @@ def _f32(x, device):
 
 def _check(rc, name):
     if rc != 0:
-        raise RuntimeError(f'{name} launch failed with cudaError_t {rc}')
+        raise RuntimeError(f'{name} launch failed with code {rc} (cudaError_t when '
+                           'positive; csrc/zernike.cu kBadParams/kBadBucket when negative)')
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
-def _num_blocks(npix):
-    threads = _lib().prysm_zernike_block_threads()
-    return (npix + threads - 1) // threads
+def _launch(name, plan, coefs, r, t, g):
+    """The kernel in mode ``name``, one launch per piece; (OPD,), (cg,) or (cg, gr, gt)."""
+    dev = r.device
+    kmax = _bucket(len(_program(plan)), _buckets())
+    blobs, _ = _params(plan, kmax)
+    pieces = _chunks(_program(plan), kmax)
+    rows = _device_rows(plan, kmax, dev)
+    r, t = _f32(r, dev), _f32(t, dev)
+    c = None if coefs is None else _f32(coefs, dev)
+    g = None if g is None else _f32(g, dev)
+    lib, mode = _lib(), _MODES[name]
+    head, quads, tail = _span(r.data_ptr(), r.numel())
+    # a persistent grid: at most the blocks that fit at once, at least one
+    # (whose threads 0 and 1 take the head and the tail)
+    threads = lib.prysm_zernike_block_threads()
+    blocks = max(1, min(_resident_blocks(dev.index, mode, kmax), -(-quads // threads)))
+    o0 = None if name == 'zernike_bwd_coefs' else torch.empty_like(r)
+    o1 = torch.empty_like(r) if name == 'zernike_bwd_all' else None
+    partial = ticket = cg = None
+    if name != 'zernike_fwd':
+        # one partial sum per block and use (two per slot), for each piece
+        # in turn; each piece writes the cotangents of its own modes
+        partial = torch.empty((blocks, 2 * max(len(p.slots) for p in pieces)),
+                              dtype=torch.float32, device=dev)
+        ticket = _ticket(dev)
+        cg = torch.empty(len(plan.modes), dtype=torch.float32, device=dev)
+    vec = _vec_bits([_ptr(x) for x in (r, t, g, o0, o1)], head)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for blob, piece in zip(blobs, pieces):
+        rc = lib.prysm_zernike_launch(mode, kmax, blob, len(blob), head, quads, tail, vec,
+                                      blocks, *(_ptr(x) for x in (c, rows, r, t, g, o0, o1,
+                                                                  partial, ticket, cg)),
+                                      stream)
+        _check(rc, name)
+        LAUNCHES[name] += 1
+    return tuple(x for x in (cg, o0, o1) if x is not None)
 
 
 def _launch_fwd(plan, coefs, r, t):
-    dev = r.device
-    tb = _device_table(plan, dev)
-    c, r, t = _f32(coefs, dev), _f32(r, dev), _f32(t, dev)
-    out = torch.empty_like(r)
-    rc = _lib().prysm_zernike_fwd(c.data_ptr(), r.data_ptr(), t.data_ptr(),
-                                  out.data_ptr(), r.numel(), *tb.args(), _stream())
-    _check(rc, 'zernike_fwd')
-    LAUNCHES['zernike_fwd'] += 1
-    return out
+    return _launch('zernike_fwd', plan, coefs, r, t, None)[0]
 
 
 def _launch_bwd_coefs(plan, r, t, g):
-    dev = r.device
-    tb = _device_table(plan, dev)
-    r, t, g = _f32(r, dev), _f32(t, dev), _f32(g, dev)
-    K = len(plan.modes)
-    partial = torch.empty((_num_blocks(r.numel()), K), dtype=torch.float32, device=dev)
-    cg = torch.empty(K, dtype=torch.float32, device=dev)
-    rc = _lib().prysm_zernike_bwd_coefs(r.data_ptr(), t.data_ptr(), g.data_ptr(),
-                                        partial.data_ptr(), cg.data_ptr(), r.numel(),
-                                        *tb.args(), _stream())
-    _check(rc, 'zernike_bwd_coefs')
-    LAUNCHES['zernike_bwd_coefs'] += 1
-    return cg
+    return _launch('zernike_bwd_coefs', plan, None, r, t, g)[0]
 
 
 def _launch_bwd_all(plan, coefs, r, t, g):
-    dev = r.device
-    tb = _device_table(plan, dev)
-    c, r, t, g = _f32(coefs, dev), _f32(r, dev), _f32(t, dev), _f32(g, dev)
-    K = len(plan.modes)
-    partial = torch.empty((_num_blocks(r.numel()), K), dtype=torch.float32, device=dev)
-    cg = torch.empty(K, dtype=torch.float32, device=dev)
-    gr, gt = torch.empty_like(r), torch.empty_like(r)
-    rc = _lib().prysm_zernike_bwd_all(c.data_ptr(), r.data_ptr(), t.data_ptr(),
-                                      g.data_ptr(), partial.data_ptr(), cg.data_ptr(),
-                                      gr.data_ptr(), gt.data_ptr(), r.numel(),
-                                      *tb.args(), _stream())
-    _check(rc, 'zernike_bwd_all')
-    LAUNCHES['zernike_bwd_all'] += 1
-    return cg, gr, gt
+    return _launch('zernike_bwd_all', plan, coefs, r, t, g)
 
 
 def _on_cpu(r):
@@ -335,8 +489,10 @@ class _ZernikeSum(torch.autograd.Function):
         coefs, r, t = ctx.saved_tensors
         if ctx.grads == 'coefs':
             cg = zernike_bwd_coefs(ctx.plan, r, t, g)
-            return (cg.to(coefs.dtype), torch.zeros_like(r), torch.zeros_like(t),
-                    None, None)
+            # the grids' cotangents are declared zero; made only if asked for
+            _, need_r, need_t = ctx.needs_input_grad[:3]
+            return (cg.to(coefs.dtype), torch.zeros_like(r) if need_r else None,
+                    torch.zeros_like(t) if need_t else None, None, None)
         cg, gr, gt = zernike_bwd_all(ctx.plan, coefs, r, t, g)
         return cg.to(coefs.dtype), gr.to(r.dtype), gt.to(t.dtype), None, None
 

@@ -107,6 +107,24 @@ def test_grads_coefs_mode():
     assert torch.all(rt.grad == 0) and torch.all(tt.grad == 0)
 
 
+def test_grads_coefs_mode_makes_no_grid_cotangent_unless_asked():
+    # cfg2's call: the grids take no gradient, so the backward returns None for them
+    r, t = _grid(32)
+    c = np.random.default_rng(13).standard_normal(len(NMS3)).astype(np.float32)
+    g = _t(np.random.default_rng(14).standard_normal(r.shape).astype(np.float32))
+    ct = _t(c).requires_grad_(True)
+    out = zernike_sum_pallas(ct, NMS3, _t(r), _t(t), grads='coefs')
+    cg, gr, gt, *_ = out.grad_fn.apply(g)
+    assert gr is None and gt is None
+    rt = _t(r).requires_grad_(True)
+    out_r = zernike_sum_pallas(ct, NMS3, rt, _t(t), grads='coefs')
+    cg_r, gr_r, gt_r, *_ = out_r.grad_fn.apply(g)
+    assert torch.equal(cg, cg_r)
+    assert gr_r.shape == r.shape and torch.all(gr_r == 0) and gt_r is None
+    plan = zk._plan(tuple(NMS3), True)
+    assert torch.equal(cg, zk.zernike_bwd_coefs_plain(plan, _t(r), _t(t), g))
+
+
 def test_bad_grads_value_raises():
     r, t = _grid(16)
     with pytest.raises(ValueError):
