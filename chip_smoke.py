@@ -18,12 +18,16 @@ Phases, each of which raises on a failed check:
    66 to n = 10 and 34 radial orders to n = 66, each run by the 32-slot
    kernels in two launches) and both norms, the coefficient cotangents
    also mode by mode, each against its own size, bit-identical from run
-   to run, one device kernel per call (per piece of a longer program),
+   to run (the coefficient backward's and the full backward's), one
+   device kernel per call (per piece of a longer program), the blocks
+   each kernel keeps resident,
    the largest |difference| for the kernels line taken over NMS6, the
-   main path's plan; the noise kernel on the cfg5 mean-electron map and on a 256^2 map
-   at 1000 e- with 4 frames (the same Philox uniforms, so the DN agree but
-   for rare rounding ties), its zero-signal case, its reproducibility and
-   its moments against the analytic chain;
+   main path's plan; the noise kernel on the cfg5 mean-electron map (1 and
+   16 frames, and in a view off a 16-byte boundary), on an odd 41 x 53 map
+   with zero-signal pixels in 5 frames and on a 256^2 map at 1000 e- with 4
+   frames (the same Philox uniforms, so the DN agree but for rare rounding
+   ties), its zero-signal case, its reproducibility and its moments against
+   the analytic chain;
 3. the main paths, each with every launch count set to 0 just before it
    and read just after:
    a. the cfg2 phase-retrieval step (1024^2 pupil -> 256^2 focal grid by
@@ -44,7 +48,11 @@ Phases, each of which raises on a failed check:
    where there is one (the library yardstick); a one-element op's time
    back to back and one torch.add over the forward's bytes, for scale;
    each kernel's bound, the larger of its bytes over the HBM rate and its
-   fp32 or int32 operations, counted from its SASS, over the card's rate;
+   operations, counted from its SASS, over the card's rate for each pipe
+   (fp32, the integer ALU, the integer multiplies);
+   beyond the kernels line, the noise kernel on a 16-frame stack of the
+   cfg5 map and the full backward on the 45 modes to n = 8 (the 32-slot
+   kernel) and the 66 to n = 10 (two launches), each beside its bound;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -75,9 +83,13 @@ N5, SEEDS5 = 512, range(5)
 # the H100 SXM data sheet: HBM bytes/s and fp32 (non-tensor) operations/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# int32 operations/s: 64 INT32 lanes per SM (Hopper architecture white
-# paper) x 132 SMs x the 1.98 GHz that the fp32 figure implies
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 instructions/s of each integer pipe, the ALU (adds, logic, shifts,
+# compares) and the FMA pipe's multiplies (IMAD): 64 lanes per SM each (CUDA
+# C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) x 132 SMs x the 1.98 GHz that the fp32 figure implies
+INT32_PIPE_OPS_PER_S = 64 * 132 * 1.98e9
+PIPE_OPS_PER_S = {'fp32': FP32_OPS_PER_S, 'alu': INT32_PIPE_OPS_PER_S,
+                  'imad': INT32_PIPE_OPS_PER_S}
 # a cold call's inputs were last touched this many bytes of other inputs ago
 COLD_BYTES = 100e6
 KERNEL_ROWS = {
@@ -87,18 +99,50 @@ KERNEL_ROWS = {
     'zernike_bwd_all': ('zernike.cu', 'prysm_tpu/ops/zernike.py:165', 20),
     'noise_expose': ('noise.cu', 'prysm_tpu/ops/noise.py:68', None),
 }
-# operations per (frame, pixel) cell of the noise kernel, counted from its
-# SASS along the path every cell takes (csrc/noise.cu says how): int32
-# instructions, and fp32 operations with an FFMA as two
-NOISE_INT_OPS, NOISE_FP32_OPS = 70, 80
+# operations of the noise kernel, counted from its SASS along the path every
+# cell of cfg5 takes, the function's own work only (csrc/noise.cu says how):
+# fp32 operations (an FFMA as two), integer ALU instructions and IMADs of a
+# thread's setup, once for its NOISE_CELLS pixels and up to NOISE_FRAMES
+# frames, and of each frame of them
+NOISE_CELLS, NOISE_FRAMES = 4, 4
+NOISE_OPS = {'setup': {'fp32': 24, 'alu': 4, 'imad': 6},
+             'frame': {'fp32': 284, 'alu': 75, 'imad': 33}}
 # fp32 operations per pixel of the Zernike kernels for NMS6, the plan that
-# phase 4 times, counted from their SASS along the path NMS6 takes
-# (csrc/zernike.cu says how), an FFMA as two: 353, 353 and 697 per quad
+# phase 4 times, counted from their SASS along the path NMS6 takes through
+# one quad of the 4-slot kernels (csrc/zernike.cu says how), an FFMA as two:
+# 353, 353 and 637 per quad
 ZERNIKE_FP32_OPS = {'zernike_fwd': 353 / 4, 'zernike_bwd_coefs': 353 / 4,
-                    'zernike_bwd_all': 697 / 4}
+                    'zernike_bwd_all': 637 / 4}
+# fp32 operations per pixel of the 32-slot full backward
+# (zernike_all_kernel<32>), counted from its SASS in the same way, per event
+# of its walk: each launch's fixed part (sincos, x, the prologue's restart,
+# the last fold, the products by g), a slot (a recurrence step with its
+# derivative, and the uses' sums), a fold of the chain rule at a group
+# start, an angle turn, a group restart, a turn and a recurrence step of the
+# prologue, and a later piece's adds: 184, 88, 76, 24, 12, 28, 40 and 8 per quad
+KALL32_FP32_OPS = {'launch': 46, 'slot': 22, 'fold': 19, 'turn': 6, 'restart': 3,
+                   'pre_turn': 7, 'pre_step': 10, 'add': 2}
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
+
+
+def kall_fp32_ops(nms):
+    """fp32 operations per pixel that zernike_bwd_all's 32-slot launches take for nms's plan."""
+    from prysm_tpu_torch.ops import zernike as zk
+    prog = zk._program(zk._plan(nms, True))
+    require(zk._bucket(len(prog), zk._buckets()) == zk._buckets()[-1],
+            f'{len(nms)} modes do not run on the 32-slot kernel')
+    ops = 0
+    for i, piece in enumerate(zk._chunks(prog, zk._buckets()[-1])):
+        ops += sum(KALL32_FP32_OPS[event] * n for event, n in (
+            ('launch', 1), ('slot', len(piece.slots)),
+            # a fold at each group start after the first slot (the last is in 'launch')
+            ('fold', sum(1 for s in piece.slots[1:] if s[0] & (zk._TURN | zk._RESET))),
+            ('turn', sum(1 for s in piece.slots if s[0] & zk._TURN)),
+            ('restart', sum(1 for s in piece.slots if s[0] & zk._RESET)),
+            ('pre_turn', piece.turns), ('pre_step', len(piece.rows)), ('add', i > 0)))
+    return ops
 
 
 def card():
@@ -162,13 +206,23 @@ def zernike_grids(dev):
     return grids
 
 
-def kernels_per_call(fn):
-    """Names of the device kernels one fn() call runs (torch.profiler), after a warm call."""
+def kernels_per_call(fn, tries=3):
+    """Names of the device kernels one fn() call runs (torch.profiler), after a warm call.
+
+    Every call launches at least one kernel, so a trace with none lost its
+    device records (it happens, rarely, on the card's profiler) and is
+    taken again, up to ``tries`` times.
+    """
     synced(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        synced(fn)
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            synced(fn)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def phase_kernels(dev):
@@ -193,6 +247,11 @@ def phase_kernels(dev):
         print(f'  {len(nms)} modes: {len(zk._program(plan))} slots, {len(blobs)} launches of '
               f'the {kmax}-slot kernels, {len(blobs[0])} bytes of parameters each, '
               f'{len(rows)} prologue rows', flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, mode in zk._MODES.items():
+        print(f'  {name}: resident blocks of {zk._lib().prysm_zernike_block_threads()} per SM, '
+              + ', '.join(f'{k}-slot {zk._resident_blocks(dev.index, mode, k) // sms}'
+                          for k in buckets), flush=True)
     for what, r, t, g in zernike_grids(dev):
         head, quads, tail = zk._span(r.data_ptr(), r.numel())
         print(f'  grid {what}: head {head}, quads {quads}, tail {tail}', flush=True)
@@ -229,6 +288,9 @@ def phase_kernels(dev):
                 again = synced(lambda: zk._launch_bwd_coefs(plan, r, t, g))
                 require(torch.equal(again, cases['zernike_bwd_coefs'][0][0]),
                         f'zernike_bwd_coefs is not bit-identical from run to run on {what}')
+                again = synced(lambda: zk._launch_bwd_all(plan, c, r, t, g))
+                require(torch.equal(again[0], cases['zernike_bwd_all'][0][0]),
+                        f'zernike_bwd_all is not bit-identical from run to run on {what}')
     # one launch per call (per piece): no second reduction kernel, no fill
     _, r, t, g = zernike_grids(dev)[0]
     for nms in (NMS6, NMS66):
@@ -396,6 +458,18 @@ def phase_noise(dev, frame5):
     worst = noise_agreement(synced(lambda: noise._launch(lam5, 1, 0, *noise_args(det))),
                             noise.expose_plain(lam5, 1, 0, *noise_args(det)), gain,
                             f'cfg5 map {tuple(lam5.shape)} x 1')
+    # the timed 16-frame stack; a map whose pixel count is odd (a lone last
+    # pair) and not a multiple of 4 (frames off 16-byte boundaries, scalar
+    # stores), in 5 frames (a last frame block of one), with zero-signal
+    # pixels; and the cfg5 map in a view one float past a 16-byte boundary
+    gen = torch.Generator().manual_seed(SEED + 3)
+    odd = 5e4 * torch.rand(41, 53, generator=gen)
+    odd.view(-1)[::7] = 0.0
+    for what, lam, frames in (('cfg5 map x 16', lam5, 16), ('41x53 x 5', odd.to(dev), 5),
+                              ('cfg5 map +4 B x 3', misaligned(lam5, 1), 3)):
+        worst = max(worst, noise_agreement(
+            synced(lambda: noise._launch(lam, frames, 0, *noise_args(det))),
+            noise.expose_plain(lam, frames, 0, *noise_args(det)), gain, what))
     flat = torch.full((256, 256), 1000.0, device=dev)
     out = synced(lambda: noise._launch(flat, 4, 123, *noise_args(det)))
     worst = max(worst, noise_agreement(out, noise.expose_plain(flat, 4, 123, *noise_args(det)),
@@ -665,14 +739,10 @@ def phase_timing(dev, smi, frame5):
     calls['noise_expose'] = (lambda lam: noise._launch(lam, 1, 0, *noise_args(det)),
                              lambda lam: noise.expose_plain(lam, 1, 0, *noise_args(det)),
                              (lam5,))
-    cells = lam5.numel()
-    work['noise_expose'] = (8 * cells, max(NOISE_INT_OPS * cells / INT32_OPS_PER_S,
-                                           NOISE_FP32_OPS * cells / FP32_OPS_PER_S))
+    work['noise_expose'] = noise_work(lam5.numel(), 1)
     kernels = {}
     for name, (kernel, plain, args) in calls.items():
-        bytes_moved, ops_s = work[name]
-        bound = {'bytes': bytes_moved / HBM_BYTES_PER_S * 1e3, 'operations': ops_s * 1e3}
-        bound_by = max(bound, key=bound.get)
+        bound, bound_by = bound_ms(*work[name])
         k = kernels[name] = {
             'ms': cold_ms(kernel, args), 'warm_ms': warm_ms(lambda: kernel(*args)),
             'plain_ms': device_ms([lambda: plain(*args)] * 2),
@@ -691,7 +761,40 @@ def phase_timing(dev, smi, frame5):
             line += (f'; library cold {k["library_ms"]:.5f} warm {k["library_warm_ms"]:.5f} ms '
                      f'(rel diff {err:.2e})')
         print(line, flush=True)
+
+    # beyond the kernels line: the noise kernel on a 16-frame stack of the
+    # cfg5 map, and the full backward on longer plans, in one launch and in two
+    extra = {'noise_expose 512^2 x 16': (lambda lam: noise._launch(lam, 16, 0, *noise_args(det)),
+                                         (lam5,), noise_work(lam5.numel(), 16))}
+    for nms, what in ((NMS45, '45 modes, 1 launch'), (NMS66, '66 modes, 2 launches')):
+        plan_k = zk._plan(nms, True)
+        c_k = torch.randn(len(nms), generator=gen).to(dev)
+        extra[f'zernike_bwd_all {what}'] = (
+            lambda r, t, g, plan_k=plan_k, c_k=c_k: zk._launch_bwd_all(plan_k, c_k, r, t, g),
+            (r, t, g), (20 * N * N, kall_fp32_ops(nms) * N * N / FP32_OPS_PER_S))
+    for what, (kernel, args, w) in extra.items():
+        bound, bound_by = bound_ms(*w)
+        cold = cold_ms(kernel, args)
+        print(f'{smi} | {what} cold {cold:.5f} warm {warm_ms(lambda: kernel(*args)):.5f} '
+              f'ms/call, bound {bound[bound_by]:.5f} ms ({bound_by}; bytes {bound["bytes"]:.5f} '
+              f'ms, operations {bound["operations"]:.5f} ms), cold / bound '
+              f'{cold / bound[bound_by]:.2f}', flush=True)
     return kernels
+
+
+def noise_work(cells, frames):
+    """(bytes, operations' seconds) of the noise kernel: the map read once, each frame written."""
+    threads = -(-cells // NOISE_CELLS)
+    setups, frame_runs = threads * -(-frames // NOISE_FRAMES), threads * frames
+    return 4 * cells + 4 * cells * frames, max(
+        (NOISE_OPS['setup'][pipe] * setups + NOISE_OPS['frame'][pipe] * frame_runs) / rate
+        for pipe, rate in PIPE_OPS_PER_S.items())
+
+
+def bound_ms(bytes_moved, ops_s):
+    """({'bytes': ms, 'operations': ms}, the larger's name): the card's least time."""
+    bound = {'bytes': bytes_moved / HBM_BYTES_PER_S * 1e3, 'operations': ops_s * 1e3}
+    return bound, max(bound, key=bound.get)
 
 
 def main():

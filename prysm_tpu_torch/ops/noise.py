@@ -10,10 +10,12 @@ the lookup table happen outside, in ``Detector._quantize``.
 
 ``csrc/noise.cu`` expose_kernel replaces ``_expose_kernel``.  The TPU's
 hardware generator has no counterpart on the card, so both the kernel and
-the plain version below run Philox4x32-10 keyed by ``(seed, STREAM)`` on
-the counter ``(pixel index, frame, 0, 0)``: the two give the same uniforms,
-and the same seed gives the same frames.  CUDA tensors launch the kernel,
-CPU tensors take the plain version; there is no fallback.
+the plain version below run Philox4x32-10 keyed by ``(seed, STREAM)``, one
+call per pixel pair on the counter ``(pair index, frame, 0, 0)``: words 0
+and 1 of its output feed the pair's even pixel, words 2 and 3 its odd one.
+The two give the same uniforms, and the same seed gives the same frames.
+CUDA tensors launch the kernel, CPU tensors take the plain version; there
+is no fallback.
 """
 import ctypes
 from functools import lru_cache
@@ -92,11 +94,19 @@ def box_muller(u1, u2):
 
 
 def _gaussians(npix, frames, seed, device):
-    """(z_shot, z_read), each (frames, npix) float32, from the kernel's counters."""
-    pix = torch.arange(npix, dtype=torch.int64, device=device)
+    """(z_shot, z_read), each (frames, npix) float32, from the kernel's counters.
+
+    One Philox call per pixel pair: the counter (q, frame, 0, 0) gives
+    pixel 2q its uniforms from words 0 and 1 and pixel 2q + 1 from words 2
+    and 3; an odd pixel count drops the last call's second pixel.
+    """
+    pair = torch.arange((npix + 1) // 2, dtype=torch.int64, device=device)
     frame = torch.arange(frames, dtype=torch.int64, device=device)[:, None]
-    w0, w1, _, _ = philox4x32_10(pix, frame, 0, 0, int(seed) & _MASK, STREAM)
-    return box_muller(uniform01(w0), uniform01(w1))
+    w0, w1, w2, w3 = philox4x32_10(pair, frame, 0, 0, int(seed) & _MASK, STREAM)
+    # (frames, pairs, 2) -> (frames, 2 pairs): pixel 2q, then 2q + 1
+    u1 = torch.stack((uniform01(w0), uniform01(w2)), -1).reshape(frames, -1)[:, :npix]
+    u2 = torch.stack((uniform01(w1), uniform01(w3)), -1).reshape(frames, -1)[:, :npix]
+    return box_muller(u1, u2)
 
 
 def _dn_chain(lam, z_shot, z_read, read_noise, bias, fwc, inv_gain, adc_cap):

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` builds into a library of its own whose file name
 hashes that source and the local headers it includes, so editing one
-source rebuilds that library alone.
+source rebuilds that library alone, and editing a shared header rebuilds
+each library that includes it.
 """
 from prysm_tpu_torch.ops import _cuda
 
@@ -11,7 +12,8 @@ def test_each_shipped_source_is_keyed_alone():
     names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu'))
     assert names == ['noise', 'zernike']
     for name in names:
-        assert _cuda._sources(name) == [_cuda.CSRC / f'{name}.cu']
+        # each source and the one header both share (sincos_reduced)
+        assert _cuda._sources(name) == [_cuda.CSRC / f'{name}.cu', _cuda.CSRC / 'sincos.cuh']
     paths = {_cuda.library_path(n) for n in names}
     assert len(paths) == 2 and all(p.parent == _cuda.BUILD for p in paths)
 

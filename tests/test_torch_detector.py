@@ -63,18 +63,44 @@ def _philox_int(counter, key):
     return c
 
 
-def test_gaussians_follow_the_counter_layout():
-    """Cell (frame f, pixel p) draws Philox((p, f, 0, 0), (seed, STREAM)) words 0 and 1."""
+def _cell_gaussians(words):
+    """(z_shot, z_read) of a cell from its two words of Philox output, in Python floats."""
+    u1, u2 = ((np.float32(x >> 8) * np.float32(2 ** -24)) + np.float32(2 ** -25) for x in words)
+    r = math.sqrt(-2 * math.log(u1))
+    return r * math.cos(2 * math.pi * u2), r * math.sin(2 * math.pi * u2)
+
+
+@pytest.mark.parametrize('npix, frames', [(40 * 52, 3), (41 * 53, 2), (7, 5), (1, 4)],
+                         ids=['even', 'odd', 'odd_small', 'one_pixel'])
+def test_gaussians_follow_the_counter_layout(npix, frames):
+    """Cell (frame f, pixel p) draws Philox((p // 2, f, 0, 0), (seed, STREAM)) words
+    (0, 1) for an even p and (2, 3) for an odd p."""
     rng = np.random.default_rng(3)
-    npix, frames, seed = 40 * 52, 3, 2 ** 32 + 77    # the seed is taken mod 2^32
+    seed = 2 ** 32 + 77    # the seed is taken mod 2^32
     z_shot, z_read = noise._gaussians(npix, frames, seed, 'cpu')
-    for f, p in zip(rng.integers(0, frames, 16), rng.integers(0, npix, 16)):
-        w = _philox_int((int(p), int(f), 0, 0), (seed & 0xFFFFFFFF, noise.STREAM))
-        u1, u2 = ((np.float32(x >> 8) * np.float32(2 ** -24)) + np.float32(2 ** -25)
-                  for x in w[:2])
-        r = math.sqrt(-2 * math.log(u1))
-        assert abs(float(z_shot[f, p]) - r * math.cos(2 * math.pi * u2)) < 1e-5
-        assert abs(float(z_read[f, p]) - r * math.sin(2 * math.pi * u2)) < 1e-5
+    assert z_shot.shape == z_read.shape == (frames, npix)
+    # random cells, and the last pixel of the last frame (an odd count's lone cell)
+    cells = list(zip(rng.integers(0, frames, 16), rng.integers(0, npix, 16)))
+    for f, p in cells + [(frames - 1, npix - 1)]:
+        w = _philox_int((int(p) // 2, int(f), 0, 0), (seed & 0xFFFFFFFF, noise.STREAM))
+        want_shot, want_read = _cell_gaussians(w[2:] if p % 2 else w[:2])
+        assert abs(float(z_shot[f, p]) - want_shot) < 1e-5
+        assert abs(float(z_read[f, p]) - want_read) < 1e-5
+
+
+def test_a_pixel_pair_shares_one_philox_call():
+    """Pixels 2q and 2q + 1 take words (0, 1) and (2, 3) of the call on counter (q, f, 0, 0)."""
+    npix, frames, seed = 10, 2, 5
+    z_shot, z_read = noise._gaussians(npix, frames, seed, 'cpu')
+    q = torch.arange(npix // 2)
+    for f in range(frames):
+        w = noise.philox4x32_10(q, f, 0, 0, seed, noise.STREAM)
+        for (a, b), cells in (((0, 1), slice(0, None, 2)), ((2, 3), slice(1, None, 2))):
+            shot, read = noise.box_muller(noise.uniform01(w[a]), noise.uniform01(w[b]))
+            assert torch.equal(z_shot[f, cells], shot) and torch.equal(z_read[f, cells], read)
+    # the pair's two cells draw different numbers, and so do two frames
+    assert not torch.equal(z_shot[0, 0::2], z_shot[0, 1::2])
+    assert not torch.equal(z_shot[0], z_shot[1])
 
 
 def test_uniforms_are_in_the_open_closed_unit_interval():

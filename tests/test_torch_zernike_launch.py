@@ -3,11 +3,12 @@
 The kernels in ``csrc/zernike.cu`` run only on the card; what the host
 hands them is tested here: the walk program a plan compiles to
 (``_program``) and its pieces (``_chunks``), replayed in plain PyTorch
-with the kernel's rules and held against the plain versions; the compiled
-program size it selects; the pieces packed as the kernels' by-value
-``Params<KMAX>``; and the pixel partition (``_span``, ``_vec_bits``),
-replayed in plain Python with the kernel's rule for which thread takes
-which pixels.
+with the kernel's rules and held against the plain versions (the forward
+and coefficient walk, and the full backward's per-group fold of the chain
+rule); the compiled program size it selects; the pieces packed as the
+kernels' by-value ``Params<KMAX>``; and the pixel partition (``_span``,
+``_vec_bits``), replayed in plain Python with the kernel's rule for which
+thread takes which pixels.
 """
 import re
 from pathlib import Path
@@ -198,6 +199,100 @@ def test_pieces_replay_matches_plain_versions(nms, kmax):
     pieces = zk._chunks(zk._program(plan), kmax)
     assert all(len(p.slots) <= kmax for p in pieces)
     _assert_replay(pieces, plan, coefs, r, t, g)
+
+
+def _replay_all(pieces, coefs, r, t, g):
+    """csrc/zernike.cu's kAll walk, piece by piece, in plain PyTorch: (cg, gr, gt).
+
+    Each slot adds c w P and c w D of its cos and sin modes into its |m|
+    group's four sums and g r^|m| cos(|m| t) P (or sin) into its modes'
+    <Z, g> sums; the group's sums fold into the r and t cotangents at the
+    next group start and at the end of the piece; g multiplies the
+    cotangents once, at the end, and a later piece adds to the earlier ones.
+    """
+    x, c1, s1 = 2 * r * r - 1, torch.cos(t), torch.sin(t)
+    one, zero = torch.ones_like(r), torch.zeros_like(r)
+    cg = torch.zeros(len(coefs), dtype=r.dtype)
+    out_r, out_t = zero, zero
+    for turns, rows, slots in pieces:
+        w = dict(ca=one, sa=zero, ram=one, ram_m1=one)
+        sums = dict(Pc=zero, Ps=zero, Dc=zero, Ds=zero)
+        gr, gt = zero, zero
+
+        def turn():
+            w.update(ca=w['ca'] * c1 - w['sa'] * s1, sa=w['sa'] * c1 + w['ca'] * s1,
+                     ram=w['ram'] * r, ram_m1=w['ram'])
+
+        def restart():
+            gram = g * w['ram']
+            w.update(P=one, Pp=zero, D=zero, Dp=zero, guc=gram * w['ca'], gus=gram * w['sa'])
+
+        def advance(A, B, C, step):
+            lin = A * x + B
+            P, D = lin * w['P'] - C * w['Pp'], A * w['P'] + lin * w['D'] - C * w['Dp']
+            if step:
+                w.update(Pp=w['P'], Dp=w['D'])
+            w.update(P=P, D=D)
+
+        def fold(am):
+            """The group's d/dr and d/dt of sum c w Z, before g; its sums cleared."""
+            du, q = am * w['ram_m1'], (r * w['ram']) * 4
+            ac = sums['Pc'] * du + sums['Dc'] * q
+            as_ = sums['Ps'] * du + sums['Ds'] * q
+            dt = (am * w['ram']) * (sums['Ps'] * w['ca'] - sums['Pc'] * w['sa'])
+            sums.update(Pc=zero, Ps=zero, Dc=zero, Ds=zero)
+            return ac * w['ca'] + as_ * w['sa'], dt
+
+        for _ in range(turns):
+            turn()
+        restart()
+        for A, B, C in rows:
+            advance(A, B, C, True)
+        am = turns
+        for j, (op, slot_am, cos, sin, (A, B, C)) in enumerate(slots):
+            if op & (TURN | RESET):
+                if j > 0:
+                    dr, dt = fold(am)
+                    gr, gt = gr + dr, gt + dt
+                if op & TURN:
+                    turn()
+                if op & RESET:
+                    restart()
+                am = slot_am
+            advance(A, B, C, op & STEP)
+            for (idx, wt), side, gu in ((cos, 'c', w['guc']), (sin, 's', w['gus'])):
+                cw = coefs[idx] * wt if idx >= 0 else 0.0
+                sums['P' + side] = sums['P' + side] + cw * w['P']
+                sums['D' + side] = sums['D' + side] + cw * w['D']
+                if idx >= 0:
+                    cg[idx] = torch.sum(gu * w['P']) * wt
+        dr, dt = fold(am)
+        out_r, out_t = out_r + g * (gr + dr), out_t + g * (gt + dt)
+    return cg, out_r, out_t
+
+
+def _rel_or_zero(got, want):
+    """max |got - want| / max |want|; where want is all zero, max |got|."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
+@pytest.mark.parametrize('kmax', [None, 32, 3], ids=['one_piece', 'cut32', 'cut3'])
+@pytest.mark.parametrize('norm', [True, False])
+@pytest.mark.parametrize('nms', [NMS6, NMS45, _full(10), RADIAL34],
+                         ids=['nms6', 'nms45', 'nms66', 'radial34'])
+def test_all_fold_replay_matches_plain_version(nms, norm, kmax):
+    """The kAll kernel's per-group fold, rehearsed in f64, is the plain full VJP."""
+    plan, coefs, r, t, g = _replay_case(nms, norm)
+    prog = zk._program(plan)
+    pieces = (zk._Piece(0, (), prog),) if kmax is None else zk._chunks(prog, kmax)
+    got = _replay_all(pieces, coefs, r, t, g)
+    want = zk.zernike_bwd_all_plain(plan, coefs, r, t, g)
+    for a, b in zip(got, want):
+        assert _rel_or_zero(a, b) < 1e-12
+    if all(am == 0 for am, *_ in plan.groups):
+        assert not got[2].any() and not want[2].any()
 
 
 _HEAD = 5  # int32 K, turns, pre, pre_at, add
