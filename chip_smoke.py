@@ -41,6 +41,20 @@ Phases, each of which raises on a failed check:
       -> Malvar demosaic) for seeds 0-4, one kernel launch per frame; the
       focal intensities, mosaic and demosaic against f64 on the card, and
       the noise statistics of the frames' exposures;
+   c. the cfg3 phasing step (a 2-ring, 19-segment hexagonal aperture with
+      piston/tip/tilt per segment at a 512^2 pupil -> Q=2 focus -> 1024^2
+      PSF -> encircled energy at 10 um, and the energy's gradient with
+      respect to the (19, 3) coefficients) for 5 steps; PSF, energy and
+      gradient against f64 on the card, and the encircled energy of an
+      unsegmented circular pupil against the analytic curve;
+   d. the cfg4 chain (1024^2: angular spectrum -> thin lens -> angular
+      spectrum -> intensity) against f64 on the card, and a +z / -z
+      angular-spectrum round trip at 1024^2;
+   e. the executors in f32: MDFT, CZT and FFTDFT against |FFT focus| on
+      the matched Q=2 grid and through their adjoint inner products, and a
+      multi-resolution Babinet coronagraph frame against f64 on the card;
+   the paths of c-e run no hand-written kernel: their launch counts, set
+   to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
    warm (inputs left in L2 by the call before), per call of its plain
@@ -53,6 +67,8 @@ Phases, each of which raises on a failed check:
    beyond the kernels line, the noise kernel on a 16-frame stack of the
    cfg5 map and the full backward on the 45 modes to n = 8 (the 32-slot
    kernel) and the 66 to n = 10 (two launches), each beside its bound;
+   the cfg3 forward, the cfg3 forward + gradient and the cfg4 chain are
+   timed in turns with the steps and the frame;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +96,7 @@ NMS45 = tuple((n, m) for n in range(9) for m in range(-n, n + 1, 2))
 NMS66 = tuple((n, m) for n in range(11) for m in range(-n, n + 1, 2))
 RADIAL34 = tuple((n, 0) for n in range(0, 68, 2))
 N5, SEEDS5 = 512, range(5)
+N3, N4 = 512, 1024
 # the H100 SXM data sheet: HBM bytes/s and fp32 (non-tensor) operations/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -169,6 +186,13 @@ def per_mode_rel(a, b, scale):
 def require(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def run_checks(checks, width=52):
+    """Print and require each (what, error, bar)."""
+    for what, err, bar in checks:
+        print(f'  {what:{width}s} {err:.3e} (bar {bar:g})', flush=True)
+        require(math.isfinite(err) and err <= bar, f'{what}: {err} exceeds {bar}')
 
 
 def synced(fn):
@@ -421,9 +445,7 @@ def check_main_path(out, ref, launches):
         ('zernike_sum decentre gradient (rel)',
          rel(out['fit_grad_shift'], ref['fit_grad_shift']), 1e-3),
     ]
-    for what, err, bar in checks:
-        print(f'  {what:40s} {err:.3e} (bar {bar:g})', flush=True)
-        require(math.isfinite(err) and err <= bar, f'{what}: {err} exceeds {bar}')
+    run_checks(checks, width=40)
 
 
 def noise_args(det):
@@ -566,9 +588,144 @@ def check_cfg5(frames, per_frame, frame5, dev):
           f'min {float(lam.min()):.4g}, max {float(lam.max()):.4g}')
     checks += [(f'cfg5 exposure residual mean ({n} px, {len(SEEDS5)} seeds)', abs(mean), 0.02),
                ('cfg5 exposure residual variance - 1', abs(var - 1), 0.03)]
-    for what, err, bar in checks:
-        print(f'  {what:52s} {err:.3e} (bar {bar:g})', flush=True)
-        require(math.isfinite(err) and err <= bar, f'{what}: {err} exceeds {bar}')
+    run_checks(checks)
+
+
+def no_kernel_launches(what):
+    """The launch counts since the last reset, all of which must be 0."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    counts = {**zk.LAUNCHES, **noise.LAUNCHES}
+    print(f'  launches on the {what} path (no hand-written kernel): {json.dumps(counts)}')
+    require(not any(counts.values()), f'the {what} path launched a kernel: {counts}')
+
+
+def phase_cfg3(dev, step3):
+    """cfg3 in f32 through its entry point for STEPS steps, against f64 on the card."""
+    from prysm_tpu_torch.coordinates import make_xy_grid
+    from prysm_tpu_torch.geometry import antialias, circle_sdf
+    from prysm_tpu_torch.otf import (encircled_energy,
+                                     analytical_encircled_energy_circular_aperture)
+    from prysm_tpu_torch.propagation import Wavefront, pupil_sample_to_psf_sample
+    from prysm_tpu_torch.steps import build_cfg3_step
+
+    c = step3.coefs
+    for i in range(STEPS):
+        ee, psf, grad = synced(lambda: step3(c))
+        require(bool(torch.isfinite(ee)) and bool(torch.isfinite(grad).all())
+                and bool(torch.isfinite(psf).all()),
+                f'cfg3 step {i}: the energy, PSF or gradient is not finite')
+        if i == 0:
+            first = ee, psf, grad
+        c = c + 1e-3 * grad
+    no_kernel_launches('cfg3')
+    require(first[1].shape == (2 * N3, 2 * N3) and first[2].shape == (19, 3),
+            f'cfg3: PSF {tuple(first[1].shape)}, gradient {tuple(first[2].shape)}')
+    step64 = build_cfg3_step(N3, dtype=torch.float64, device=dev)
+    ee64, psf64, grad64 = synced(lambda: step64(step64.coefs))
+    print(f'  cfg3: {len(step3.aperture.segment_ids)} segments, EE(10 um) {float(first[0]):.6f} '
+          f'(f64 {float(ee64):.6f}), |dEE/dc| max {float(grad64.abs().max()):.4e} per nm')
+
+    # the encircled energy of an unsegmented circular pupil against the analytic
+    # curve (the on-chip physics check of the JAX package): EE(4, 8 um) / EE(60 um)
+    n, efl, epd, wvl, Q = 256, 10.0, 1.0, 0.5, 3
+    x, y = make_xy_grid(n, diameter=epd * 1.1, device=dev)
+    dx = epd * 1.1 / n
+    amp = antialias(circle_sdf(epd / 2, torch.hypot(x, y)), dx)
+    I = synced(lambda: Wavefront.from_amp_and_phase(amp, None, wvl, dx).focus(efl, Q=Q)
+               .intensity.data)
+    pdx = pupil_sample_to_psf_sample(dx, n * Q, wvl, efl)
+    pts = (4.0, 8.0)
+    numeric = encircled_energy(I, pdx, pts).double() / float(encircled_energy(I, pdx, 60.0))
+    analytic = analytical_encircled_energy_circular_aperture(
+        efl / epd, wvl, torch.tensor(pts, dtype=torch.float64, device=dev))
+    run_checks([
+        ('cfg3 PSF (peak rel)', rel(first[1], psf64), 2e-5),
+        ('cfg3 encircled energy (rel)', rel(first[0], ee64), 1e-4),
+        ('cfg3 energy gradient (rel)', rel(first[2], grad64), 1e-3),
+        ('circular pupil EE(4, 8 um) / EE(60) vs analytic (rel)',
+         float(((numeric - analytic) / analytic).abs().max()), 2e-2),
+    ])
+
+
+def phase_cfg4(dev, chain4):
+    """cfg4 in f32 through its entry point, against f64 on the card; a +z / -z round trip."""
+    from prysm_tpu_torch.fttools import crop_center
+    from prysm_tpu_torch.propagation import angular_spectrum
+    from prysm_tpu_torch.steps import build_cfg4_chain, CFG4_Z1
+
+    I = synced(chain4)
+    no_kernel_launches('cfg4')
+    require(I.shape == (N4, N4) and I.dtype == torch.float32 and bool(torch.isfinite(I).all()),
+            'the cfg4 intensity is not a finite (1024, 1024) f32 map')
+    chain64 = build_cfg4_chain(N4, dtype=torch.float64, device=dev)
+    I64 = synced(chain64)
+    E = chain4.amp.to(torch.complex64)
+    there = angular_spectrum(E, 0.55, chain4.dx, CFG4_Z1, Q=2)
+    back = crop_center(angular_spectrum(there, 0.55, chain4.dx, -CFG4_Z1, Q=1), (N4, N4))
+    phase_err = lambda a, b: float(torch.angle(a.to(b.dtype) * b.conj()).abs().max())  # noqa: E731
+    print(f'  cfg4: phase error of the f32 plan tensors vs f64: lens '
+          f'{phase_err(chain4.lens, chain64.lens):.3e} rad, tf1 '
+          f'{phase_err(chain4.tf1, chain64.tf1):.3e} rad, tf2 '
+          f'{phase_err(chain4.tf2, chain64.tf2):.3e} rad')
+    run_checks([
+        ('cfg4 intensity (peak rel)', rel(I, I64), 1e-3),
+        ('angular spectrum +z / -z round trip (peak rel)', rel(back, E), 1e-3),
+    ])
+
+
+def phase_executors(dev):
+    """The three executors against |FFT focus| and their adjoints in f32; a multi-resolution
+    Babinet frame against f64 on the card."""
+    from prysm_tpu_torch.coordinates import make_xy_grid
+    from prysm_tpu_torch.geometry import antialias, circle_sdf
+    from prysm_tpu_torch.propagation import (focus, prepare_executor, prepare_multiresolution,
+                                             to_fpm_and_back_multiresolution)
+
+    # the JAX package's on-chip executor checks: 128^2 at binary-exact spacings
+    n, dx, wvl, efl = 128, 0.015625, 0.5, 10.0
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rand = lambda *shape: torch.complex(torch.randn(*shape, generator=gen),  # noqa: E731
+                                        torch.randn(*shape, generator=gen)).to(dev)
+    a, x, y = rand(n, n), rand(n, n), rand(96, 96)
+    m1 = focus(a, Q=2).abs()
+    checks = []
+    for kind in ('mdft', 'czt', 'fftdft'):
+        plan = prepare_executor(dx, (n, n), efl * wvl / (dx * 2 * n), 2 * n, wvl, efl, kind=kind,
+                                dtype=torch.complex64, device=dev)
+        m2 = plan(a).abs()
+        checks.append((f'{kind} vs |FFT focus| at Q=2 (peak rel)',
+                       rel(m2 * (m1.max() / m2.max()), m1), 1e-4))
+        plan = prepare_executor(dx, (n, n), 0.5, 96, wvl, efl, kind=kind,
+                                dtype=torch.complex64, device=dev)
+        lhs = torch.vdot(plan(x).ravel(), y.ravel())
+        rhs = torch.vdot(x.ravel(), plan.adjoint(y).ravel())
+        checks.append((f'{kind} adjoint <Ax, y> - <x, A*y> (rel)',
+                       float((lhs - rhs).abs() / lhs.abs()), 1e-4))
+
+    def frame(dtype):
+        # an occulting disk of 3 lambda/D through a 3-level stack, Lyot stop 0.9,
+        # Babinet form: the stack carries only the disk's complement
+        N, wvl5, efl5 = 256, 0.55, 10.0
+        pdx = 2.2 / N
+        xg, yg = make_xy_grid(N, diameter=2.2, dtype=dtype, device=dev)
+        r = torch.hypot(xg, yg)
+        E = antialias(circle_sdf(1.0, r), pdx).to(dtype.to_complex())
+        lyot = antialias(circle_sdf(0.9, r), pdx)
+        lam_d = wvl5 * efl5 / 2.0
+        mr = prepare_multiresolution(pdx, (N, N), lam_d / 2, 96, wvl5, efl5, num_levels=3,
+                                     fine_samples=64, dtype=dtype.to_complex(), device=dev)
+        disk = lambda xf, yf: (torch.hypot(xf, yf) <= 3 * lam_d).to(xf.dtype)  # noqa: E731
+        at_lyot = E - to_fpm_and_back_multiresolution(E, disk, mr)
+        final = prepare_executor(pdx, (N, N), lam_d / 4, 128, wvl5, efl5,
+                                 dtype=dtype.to_complex(), device=dev)
+        return final(lyot * at_lyot).abs() ** 2
+
+    I32 = synced(lambda: frame(torch.float32))
+    no_kernel_launches('executors')
+    I64 = synced(lambda: frame(torch.float64))
+    checks.append(('multi-resolution Babinet frame (peak rel)', rel(I32, I64), 1e-4))
+    run_checks(checks)
 
 
 # ---------------------------------------------------------------------------
@@ -661,7 +818,7 @@ def device_breakdown(fn, steps=10, top=5):
                       for e in events[:top]]
 
 
-def phase_timing(dev, smi, frame5):
+def phase_timing(dev, smi, frame5, step3, chain4):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
@@ -676,12 +833,18 @@ def phase_timing(dev, smi, frame5):
     steps['cfg1_step_ms'] = build_cfg1_step(pupil)
     calls = {k: (lambda s=s: s(pupil.coefs)) for k, s in steps.items()}
     calls['cfg5_frame_ms'] = lambda: frame5(0)
+    calls['cfg3_forward_ms'] = lambda: step3.forward(step3.coefs)
+    calls['cfg3_step_ms'] = lambda: step3(step3.coefs)
+    calls['cfg4_chain_ms'] = chain4
     timing = step_ms(calls)
     for k, v in timing.items():
         print(f'{smi} | {k} {v:.4f}', flush=True)
     for name, key, unit in (('cfg2', 'cfg2_step_ms_high', 'step'),
                             ('cfg1', 'cfg1_step_ms', 'step'),
-                            ('cfg5', 'cfg5_frame_ms', 'frame')):
+                            ('cfg5', 'cfg5_frame_ms', 'frame'),
+                            ('cfg3_forward', 'cfg3_forward_ms', 'call'),
+                            ('cfg3', 'cfg3_step_ms', 'step'),
+                            ('cfg4', 'cfg4_chain_ms', 'chain')):
         wall = timing[key]
         busy, top = device_breakdown(calls[key])
         print(f'{smi} | {name}_device_ms_per_{unit} {busy:.4f} busy share '
@@ -803,7 +966,7 @@ def main():
         return 1
     from prysm_tpu_torch.ops import _cuda, noise
     from prysm_tpu_torch.ops import zernike as zk
-    from prysm_tpu_torch.steps import build_cfg5_frame
+    from prysm_tpu_torch.steps import build_cfg3_step, build_cfg4_chain, build_cfg5_frame
 
     start = time.perf_counter()
 
@@ -857,8 +1020,27 @@ def main():
     check_cfg5(frames, per_frame, frame5, dev)
     torch.cuda.synchronize()
 
+    print(f'phase 3c: cfg3 (19-segment aperture at {N3}^2, PSF {2 * N3}^2, encircled energy '
+          f'and its gradient) x{STEPS} {stamp()}', flush=True)
+    step3 = build_cfg3_step(N3, device=dev)
+    zk.reset_launches()
+    noise.reset_launches()
+    phase_cfg3(dev, step3)
+    print(f'phase 3d: cfg4 (angular spectrum -> lens -> angular spectrum at {N4}^2) {stamp()}',
+          flush=True)
+    chain4 = build_cfg4_chain(N4, device=dev)
+    zk.reset_launches()
+    noise.reset_launches()
+    phase_cfg4(dev, chain4)
+    print(f'phase 3e: executors (MDFT, CZT, FFTDFT; multi-resolution Babinet) {stamp()}',
+          flush=True)
+    zk.reset_launches()
+    noise.reset_launches()
+    phase_executors(dev)
+    torch.cuda.synchronize()
+
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
-    kernels = phase_timing(dev, smi, frame5)
+    kernels = phase_timing(dev, smi, frame5, step3, chain4)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

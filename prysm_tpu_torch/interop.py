@@ -10,12 +10,15 @@ import torch
 
 from .conf import resolve_device
 from .detector import Detector
-from .fttools import MDFT
+from .fttools import MDFT, CZT, FFTDFT
 from .parallel import SpectralMDFT
+from .propagation import MultiResolutionExecutor
+from .segmented import CompositeHexagonalAperture
 from .steps import Pupil
 
-__all__ = ['mdft_from_numpy', 'pupil_from_numpy', 'spectral_mdft_from_numpy',
-           'detector_from_numpy']
+__all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_numpy',
+           'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
+           'spectral_mdft_from_numpy', 'detector_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -32,6 +35,74 @@ def mdft_from_numpy(Ex_re, Ex_im, Ey_re, Ey_im, norm, forward_left_first,
     return MDFT(Ex, Ey, norm=norm, forward_left_first=forward_left_first,
                 adjoint_left_first=adjoint_left_first, pupil_dx=pupil_dx,
                 focal_dx=focal_dx, matmul_precision=matmul_precision)
+
+
+def _complex_leaves(fields, names, dev):
+    """{name: complex tensor} from the fields' name_re / name_im arrays."""
+    return {n: torch.complex(_tensor(fields[n + '_re'], dev), _tensor(fields[n + '_im'], dev))
+            for n in names}
+
+
+def _statics(fields, names):
+    return {n: fields[n] for n in names}
+
+
+_CZT_LEAVES = ('brow', 'bcol', 'Hrow', 'Hcol', 'arow', 'acol', 'x_phase', 'y_phase')
+_FFTDFT_LEAVES = ('pre_x', 'pre_y', 'post_x', 'post_y')
+_GEOMETRY = ('norm', 'Nx', 'Ny', 'Mx', 'My', 'Kx', 'Ky', 'x_first', 'pupil_dx', 'focal_dx')
+
+
+def czt_from_numpy(fields, device=None):
+    """A CZT plan from the JAX plan's fields: {name: value} of its re/im leaves and statics."""
+    dev = resolve_device(device)
+    return CZT(**_complex_leaves(fields, _CZT_LEAVES, dev), **_statics(fields, _GEOMETRY))
+
+
+def fftdft_from_numpy(fields, device=None):
+    """An FFTDFT plan from the JAX plan's fields: {name: value} of its re/im leaves and statics."""
+    dev = resolve_device(device)
+    return FFTDFT(**_complex_leaves(fields, _FFTDFT_LEAVES, dev),
+                  **_statics(fields, _GEOMETRY + ('x_direction', 'y_direction')))
+
+
+def plan_from_numpy(fields, device=None):
+    """An MDFT, CZT or FFTDFT plan from a JAX plan's fields, by the leaves they hold."""
+    if 'Ex_re' in fields:
+        return mdft_from_numpy(**fields, device=device)
+    if 'brow_re' in fields:
+        return czt_from_numpy(fields, device=device)
+    return fftdft_from_numpy(fields, device=device)
+
+
+def multiresolution_from_numpy(executors, windows, xf, yf, device=None):
+    """A MultiResolutionExecutor from the JAX stack: its plans' fields and its host arrays.
+
+    The windows and focal grids go to the device in the plans' real dtype.
+    """
+    dev = resolve_device(device)
+    plans = [plan_from_numpy(f, device=dev) for f in executors]
+    real = next(v for v in vars(plans[0]).values() if torch.is_tensor(v)).real.dtype
+    host = lambda arrs: [_tensor(a, dev, real) for a in arrs]  # noqa: E731
+    return MultiResolutionExecutor(plans, host(windows), host(xf), host(yf))
+
+
+def composite_aperture_from_numpy(amp, windows, local_masks, opd_bases, segment_ids,
+                                  device=None):
+    """A CompositeHexagonalAperture that composes the JAX aperture's OPD.
+
+    Takes the JAX aperture's ``amp``, ``windows`` (slice pairs),
+    ``local_masks``, ``opd_bases`` and ``segment_ids``; the result's
+    ``compose_opd`` runs the same slice-adds on the port's device.
+    """
+    dev = resolve_device(device)
+    cha = CompositeHexagonalAperture.__new__(CompositeHexagonalAperture)
+    cha.device = dev
+    cha.amp = _tensor(amp, dev)
+    cha.windows = list(windows)
+    cha.local_masks = [_tensor(m, dev) for m in local_masks]
+    cha.opd_bases = [_tensor(b, dev) for b in opd_bases]
+    cha.segment_ids = [int(i) for i in segment_ids]
+    return cha
 
 
 def pupil_from_numpy(r, t, amp, dx, coefs, nms, device=None):

@@ -1,22 +1,28 @@
 """Lyot-family coronagraph propagation: FPM round trips, Babinet, vortex.
 
-Counterpart of ``prysm_tpu/propagation/coronagraph.py`` (its single-plan
-part).  The forward paths are plain torch compositions that autograd
-differentiates; the explicit ``*_adjoint`` twins mirror the reference API
-for hand-chained gradient pipelines.  ``executor`` is any plan with
-``__call__`` (focus) and ``adjoint`` (unfocus): ``fttools.MDFT`` or the
-wavelength-stacked ``parallel.SpectralMDFT``.
+Counterpart of ``prysm_tpu/propagation/coronagraph.py``.  The forward
+paths are plain torch compositions that autograd differentiates; the
+explicit ``*_adjoint`` twins mirror the reference API for hand-chained
+gradient pipelines.  ``executor`` is any plan with ``__call__`` (focus)
+and ``adjoint`` (unfocus): ``fttools.MDFT``/``CZT``/``FFTDFT`` or the
+wavelength-stacked ``parallel.SpectralMDFT``; the multi-resolution
+functions take a ``dft.MultiResolutionExecutor`` and a mask callable of
+the focal grids (xf, yf).
 """
+import functools
 import numbers
+import operator
 
 import numpy as np
 import torch
 
 from .dft import focus_dft, focus_dft_adjoint, unfocus_dft, unfocus_dft_adjoint
+from ..coordinates import _bilinear_lookup
 from ..mathops import cis
 
 __all__ = ['to_fpm_and_back', 'to_fpm_and_back_adjoint', 'vortex_phase_mask',
-           'babinet', 'babinet_adjoint']
+           'prepare_measured_fpm', 'to_fpm_and_back_multiresolution',
+           'to_fpm_and_back_multiresolution_adjoint', 'babinet', 'babinet_adjoint']
 
 
 def _is_complex(x):
@@ -81,6 +87,112 @@ def vortex_phase_mask(charge):
         return cis(charge * torch.atan2(yf, xf))
 
     return fpm
+
+
+def prepare_measured_fpm(measurement, dx, center=(0, 0), charge=None, fill=None):
+    """Wrap a measured complex focal-plane-mask map as an fpm callable.
+
+    Bilinearly interpolates the measured complex transmission at the
+    requested focal coordinates; outside the measured extent the mask is
+    an ideal vortex (if ``charge`` is given), a scalar, or a callable
+    ``fill``.  Array index n // 2 of the measurement maps to ``center``.
+    The callable takes numpy grids (and returns numpy) or tensors.
+    """
+    meas = np.asarray(measurement)
+    ny, nx = meas.shape
+    cx, cy = center
+    re = np.ascontiguousarray(meas.real)
+    im = np.ascontiguousarray(meas.imag)
+    tables = {}
+    if fill is None:
+        fill = vortex_phase_mask(charge) if charge is not None else 1.0
+    fill_is_callable = callable(fill)
+
+    def _np_bilinear(img, rows, cols):
+        r0 = np.floor(rows).astype(np.int64)
+        c0 = np.floor(cols).astype(np.int64)
+        fr = rows - r0
+        fc = cols - c0
+
+        def gather(ri, ci):
+            return img[np.clip(ri, 0, ny - 1), np.clip(ci, 0, nx - 1)]
+
+        top = gather(r0, c0) * (1 - fc) + gather(r0, c0 + 1) * fc
+        bot = gather(r0 + 1, c0) * (1 - fc) + gather(r0 + 1, c0 + 1) * fc
+        return top * (1 - fr) + bot * fr
+
+    def _table(img, like):
+        """The measured map as a tensor in the grid's dtype on its device, made once."""
+        key = (id(img), like.dtype, like.device)
+        if key not in tables:
+            tables[key] = torch.from_numpy(img).to(like.device, like.dtype)
+        return tables[key]
+
+    def fpm(xf, yf):
+        host = isinstance(xf, np.ndarray)
+        col = (xf - cx) / dx + nx // 2
+        row = (yf - cy) / dx + ny // 2
+        # clamp to the border (mode='nearest'); the inside test gates fill
+        if host:
+            rowc, colc = np.clip(row, 0, ny - 1), np.clip(col, 0, nx - 1)
+            interp = _np_bilinear(re, rowc, colc) + 1j * _np_bilinear(im, rowc, colc)
+        else:
+            rowc, colc = torch.clamp(row, 0, ny - 1), torch.clamp(col, 0, nx - 1)
+            interp = torch.complex(_bilinear_lookup(_table(re, xf), rowc, colc),
+                                   _bilinear_lookup(_table(im, xf), rowc, colc))
+        inside = (row >= 0) & (row <= ny - 1) & (col >= 0) & (col <= nx - 1)
+        fillv = fill(xf, yf) if fill_is_callable else fill
+        if host:
+            return np.where(inside, interp, fillv)
+        return torch.where(inside, interp, torch.as_tensor(fillv, dtype=interp.dtype,
+                                                           device=interp.device))
+
+    return fpm
+
+
+def _mr_levels(executor):
+    """Per-level (executor, window, xf, yf) tuples of a multiresolution stack."""
+    return zip(executor.executors, executor.windows, executor.xf, executor.yf)
+
+
+def to_fpm_and_back_multiresolution(wavefunction, fpm, executor, return_more=False):
+    """Multi-resolution to_fpm_and_back: the sum of per-level windowed round trips.
+
+    Each level propagates to its focal grid, applies mask x window and
+    propagates back; the level sums rebuild the full-bandwidth round trip.
+    """
+    at_fpm, after_fpm, contributions = [], [], []
+    for ex, win, xf, yf in _mr_levels(executor):
+        E_focus = focus_dft(wavefunction, ex)
+        E_masked = E_focus * fpm(xf, yf) * win
+        contributions.append(unfocus_dft(E_masked, ex))
+        at_fpm.append(E_focus)
+        after_fpm.append(E_masked)
+    total = functools.reduce(operator.add, contributions)
+    return (total, at_fpm, after_fpm) if return_more else total
+
+
+def to_fpm_and_back_multiresolution_adjoint(wavefunction, fpm, executor, return_more=False,
+                                            return_fpm_grad=False, field_at_fpm=None):
+    """Adjoint of to_fpm_and_back_multiresolution; optionally the per-level FPM gradients."""
+    if return_fpm_grad and field_at_fpm is None:
+        raise ValueError('return_fpm_grad=True requires field_at_fpm from '
+                         'the forward propagation')
+    Ebbars, intermediates, fpm_bars, contributions = [], [], [], []
+    for k, (ex, win, xf, yf) in enumerate(_mr_levels(executor)):
+        mask = fpm(xf, yf)
+        Ebbar = unfocus_dft_adjoint(wavefunction, ex)
+        intermediate = _adjoint_multiply(Ebbar, mask * win)
+        contributions.append(focus_dft_adjoint(intermediate, ex))
+        Ebbars.append(Ebbar)
+        intermediates.append(intermediate)
+        if return_fpm_grad:
+            fpm_bars.append(_adjoint_multiply(Ebbar, field_at_fpm[k] * win,
+                                              real=not _is_complex(mask)))
+    total = functools.reduce(operator.add, contributions)
+    extras = ((Ebbars, intermediates) if return_more else ()) + \
+        ((fpm_bars,) if return_fpm_grad else ())
+    return (total, *extras) if extras else total
 
 
 def babinet(wavefunction, lyot, fpm, executor, return_more=False):

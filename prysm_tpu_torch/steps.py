@@ -1,4 +1,4 @@
-"""The main path: the flagship forward and the two gradient steps.
+"""The main paths: the flagship forward, the gradient steps, and the frames and chains.
 
 Counterparts, without any timing harness, of
 
@@ -12,14 +12,24 @@ Counterparts, without any timing harness, of
   OPD comes from ``zernike_sum_pallas``, which runs the CUDA kernels on
   the card; ``fused=False`` builds the mode stack instead, as the JAX
   step does when its Pallas kernels are off;
+* ``bench.py`` cfg3: a 2-ring hexagonal segmented aperture with
+  per-segment piston/tip/tilt at a 512^2 pupil -> Q=2 focus -> 1024^2 PSF
+  -> encircled energy at 10 um, and its gradient with respect to the
+  (19, 3) segment coefficients, a phasing user's step;
+* ``bench.py`` cfg4: a 1024^2 plane-to-plane chain, angular spectrum ->
+  thin lens -> angular spectrum -> intensity, with the transfer functions
+  and the lens built once as plan tensors;
 * ``bench.py`` cfg5: a 6-wavelength Babinet Lyot coronagraph at a 512^2
   pupil -> Q=1 focus -> RGGB mosaic -> detector exposure through the
   noise kernel -> Malvar demosaic.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
-for cfg1, the MTF); ``build_cfg5_frame`` returns a callable that takes a
-seed and returns the demosaicked frame.
+for cfg1, the MTF); ``build_cfg3_step`` one that takes the segment
+coefficients and returns the encircled energy, the PSF and the energy's
+coefficient gradient; ``build_cfg4_chain`` one that returns the
+intensity; ``build_cfg5_frame`` one that takes a seed and returns the
+demosaicked frame.
 """
 from dataclasses import dataclass
 
@@ -32,14 +42,17 @@ from .coordinates import make_xy_grid, cart_to_polar
 from .detector import Detector
 from .geometry import circle_sdf, antialias
 from .ops.zernike import zernike_sum_pallas
-from .otf import mtf_from_psf
+from .otf import mtf_from_psf, encircled_energy, _encircled_energy_rfft_weights
 from .parallel import plan_mdft_spectral
 from .polynomials import zernike_nm_seq, sum_of_2d_modes
-from .propagation import Wavefront, babinet, focus, prepare_executor
+from .propagation import (Wavefront, babinet, focus, prepare_executor,
+                          angular_spectrum_transfer_function, pupil_sample_to_psf_sample)
+from .segmented import CompositeHexagonalAperture
 
 __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
-           'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step', 'CFG5_WVLS',
-           'CFG5_DETECTOR', 'build_cfg5_frame']
+           'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step', 'CFG3_NMS',
+           'build_cfg3_step', 'build_cfg4_chain', 'CFG5_WVLS', 'CFG5_DETECTOR',
+           'build_cfg5_frame']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -166,6 +179,108 @@ def build_cfg2_step(pupil=None, plan=None, fused=True, *, N=1024,
         return _value_and_grad(loss, coefs)
 
     return step
+
+
+# bench.py cfg3: the grid's extent (mm), the aperture (rings, flat-to-flat
+# segment diameter and gap, mm), the per-segment modes, and the encircled
+# energy's radius (um)
+CFG3_DIAMETER, CFG3_RINGS, CFG3_SEGMENT, CFG3_GAP = 2.4, 2, 0.4, 0.007
+CFG3_NMS = ((0, 0), (1, -1), (1, 1))
+CFG3_EE_RADIUS = 10.0
+
+
+class _Cfg3Step:
+    """The cfg3 phasing step; call it with the (19, 3) segment coefficients.
+
+    Planned once: the aperture from a host grid (``aperture``, ``amp``),
+    its per-segment piston/tip/tilt bases, the starting coefficients
+    ``coefs`` (``np.random.default_rng(7)``, scale 20 nm, as bench.py), and
+    the encircled energy's half-plane weights for the 1024^2 PSF.
+    ``forward(c)`` gives (EE, PSF); calling the step gives (EE, PSF, dEE/dc).
+    """
+
+    def __init__(self, N, dtype=None, device=None):
+        dtype = config.precision if dtype is None else dtype
+        x, y = make_xy_grid(N, diameter=CFG3_DIAMETER, host=True, dtype=dtype)
+        self.dx = CFG3_DIAMETER / N
+        self.aperture = CompositeHexagonalAperture(x, y, CFG3_RINGS, CFG3_SEGMENT, CFG3_GAP,
+                                                   device=device)
+        self.aperture.prepare_opd_bases(zernike_nm_seq, CFG3_NMS)
+        self.amp = self.aperture.amp
+        nseg = len(self.aperture.segment_ids)
+        coefs = np.random.default_rng(7).normal(scale=20.0, size=(nseg, len(CFG3_NMS)))
+        self.coefs = torch.from_numpy(coefs.astype(np.float32)).to(self.amp.device, dtype)
+        # the PSF's geometry is fixed: build the encircled energy's weights now
+        M = 2 * N
+        _encircled_energy_rfft_weights((M, M), pupil_sample_to_psf_sample(self.dx, M, WVL, EFL),
+                                       (CFG3_EE_RADIUS,), dtype, self.amp.device)
+
+    def forward(self, c):
+        """(encircled energy at 10 um, the 1024^2 PSF) for segment coefficients c."""
+        opd = self.aperture.compose_opd(c)
+        I = Wavefront.from_amp_and_phase(self.amp, opd, WVL, self.dx).focus(EFL, Q=2).intensity
+        return encircled_energy(I.data, I.dx, CFG3_EE_RADIUS), I.data
+
+    def __call__(self, coefs):
+        """(EE, PSF, dEE/dcoefs) at coefs."""
+        c = coefs.detach().requires_grad_(True)
+        ee, psf = self.forward(c)
+        grad, = torch.autograd.grad(ee, c)
+        return ee.detach(), psf.detach(), grad
+
+
+def build_cfg3_step(N=512, dtype=None, device=None):
+    """cfg3: the segmented-aperture PSF, its encircled energy at 10 um and the energy's gradient.
+
+    A 2-ring hexagonal aperture (19 segments) of 0.4 mm segments 7 um
+    apart on an N^2 grid 2.4 mm across, piston/tip/tilt per segment,
+    Q=2 focus.  Returns a callable ``step(coefs)`` giving (EE, PSF,
+    dEE/dcoefs); ``step.coefs`` holds the starting coefficients and
+    ``step.forward(coefs)`` the forward alone.
+    """
+    return _Cfg3Step(N, dtype=dtype, device=device)
+
+
+# bench.py cfg4: the grid's extent (mm), the aperture radius (mm), the lens's
+# focal length and the two propagation distances (mm)
+CFG4_DIAMETER, CFG4_RADIUS, CFG4_EFL, CFG4_Z1, CFG4_Z2 = 10.0, 4.0, 150.0, 50.0, 100.0
+
+
+class _Cfg4Chain:
+    """The cfg4 plane-to-plane chain; calling it gives the intensity at the last plane.
+
+    The plan tensors are made once in ``dtype`` on the device, as bench.py
+    passes them: the aperture ``amp``, the thin-lens screen ``lens`` and
+    the two transfer functions ``tf1``, ``tf2``.
+    """
+
+    def __init__(self, N, dtype=None, device=None):
+        dtype = config.precision if dtype is None else dtype
+        self.dx = CFG4_DIAMETER / N
+        x, y = make_xy_grid(N, diameter=CFG4_DIAMETER, dtype=dtype, device=device)
+        r, _ = cart_to_polar(x, y)
+        self.amp = antialias(circle_sdf(CFG4_RADIUS, r), self.dx)
+        self.lens = Wavefront.thin_lens(CFG4_EFL, WVL, x, y, dx=self.dx).data
+        self.tf1, self.tf2 = (angular_spectrum_transfer_function(
+            (N, N), WVL, self.dx, z, dtype=dtype, device=x.device) for z in (CFG4_Z1, CFG4_Z2))
+
+    def __call__(self, amp=None):
+        """|E|^2 after AS(z1) -> lens -> AS(z2), from ``amp`` (default the plan's aperture)."""
+        wf = Wavefront.from_amp_and_phase(self.amp if amp is None else amp, None, WVL, self.dx)
+        a = wf.free_space(tf=self.tf1)
+        b = Wavefront(a.data * self.lens, WVL, self.dx, a.space)
+        return b.free_space(tf=self.tf2).intensity.data
+
+
+def build_cfg4_chain(N=1024, dtype=None, device=None):
+    """cfg4: angular spectrum 50 mm -> f = 150 mm thin lens -> angular spectrum 100 mm.
+
+    A circle of radius 4 mm on an N^2 grid 10 mm across at 0.55 um.
+    Returns a callable ``chain(amp=None)`` giving the intensity; its
+    plan tensors are ``chain.amp``, ``chain.lens``, ``chain.tf1`` and
+    ``chain.tf2``.
+    """
+    return _Cfg4Chain(N, dtype=dtype, device=device)
 
 
 # bench.py cfg5: six wavelengths (um), the focal window and the detector

@@ -35,6 +35,31 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15
 
 
+# the optics-core modules of the cfg3/cfg4 slice: each is one of the files the
+# import check above reads, and imports without a card
+SLICE5_MODULES = ('mathops', 'coordinates', 'geometry', 'otf', 'segmented', 'fttools', 'psf',
+                  'propagation.dft', 'propagation.angular_spectrum', 'propagation.wavefront',
+                  'propagation.coronagraph', 'steps', 'interop')
+
+
+@pytest.mark.parametrize('module', SLICE5_MODULES)
+def test_slice_module_is_checked_and_imports(module):
+    import importlib
+    path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
+    assert path in PORT_FILES
+    importlib.import_module(f'prysm_tpu_torch.{module}')
+
+
+@pytest.mark.parametrize('kind', ['czt', 'fftdft'])
+def test_prepare_executor_builds_the_other_kinds(kind):
+    import torch
+    from prysm_tpu_torch import fttools
+    from prysm_tpu_torch.propagation import prepare_executor
+    plan = prepare_executor(0.015625, 16, 0.5, 12, 0.5, 10.0, kind=kind, device='cpu')
+    assert isinstance(plan, {'czt': fttools.CZT, 'fftdft': fttools.FFTDFT}[kind])
+    assert plan(torch.ones(16, 16)).shape == (12, 12)
+
+
 def _run_smoke(cwd):
     return subprocess.run([sys.executable, 'chip_smoke.py'], cwd=cwd, capture_output=True,
                           text=True, timeout=120)
