@@ -53,8 +53,20 @@ Phases, each of which raises on a failed check:
    e. the executors in f32: MDFT, CZT and FFTDFT against |FFT focus| on
       the matched Q=2 grid and through their adjoint inner products, and a
       multi-resolution Babinet coronagraph frame against f64 on the card;
-   the paths of c-e run no hand-written kernel: their launch counts, set
-   to 0 before each, must read 0 after it;
+   f. the freeform-fit path (1024^2 grid over the unit disk: the sag and
+      slopes of a Q2d surface with every term to n = 8, |m| = 8, a
+      least-squares fit of 36 normalized Noll Zernikes, the reconstruction
+      through ``zernike_sum``, one launch of the Zernike forward kernel,
+      and the masked residual RMS; the Chebyshev, XY, radial Jacobi and
+      Zernike sag families with their slopes) against the same path in f64
+      on the card, with the TF32 switch off as ``set_matmul_precision``
+      left it;
+   g. the image chain (1024^2: a 36-spoke Siemens star convolved with the
+      flagship PSF, and through its OTF, a smear and a jitter) against f64
+      on the card, the star built once in f64 and cast, with the share of
+      pixels whose threshold a star built in f32 would flip;
+   the paths of c-e and g run no hand-written kernel: their launch counts,
+   set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
    warm (inputs left in L2 by the call before), per call of its plain
@@ -67,8 +79,12 @@ Phases, each of which raises on a failed check:
    beyond the kernels line, the noise kernel on a 16-frame stack of the
    cfg5 map and the full backward on the 45 modes to n = 8 (the 32-slot
    kernel) and the 66 to n = 10 (two launches), each beside its bound;
-   the cfg3 forward, the cfg3 forward + gradient and the cfg4 chain are
-   timed in turns with the steps and the frame;
+   the cfg3 forward, the cfg3 forward + gradient, the cfg4 chain, the
+   freeform fit and the image chain are timed in turns with the steps and
+   the frame (the freeform fit's three parts, sag, fit and families, in a
+   second round of turns), each with its device time, busy share, device
+   kernels and hand-written kernel launches per call and longest device
+   operations;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -728,6 +744,106 @@ def phase_executors(dev):
     run_checks(checks)
 
 
+def masked_rel(a, b, mask):
+    """max |a - b| / max |b| over the mask, in float64."""
+    a, b = a.detach().double()[mask], b.detach().double()[mask]
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def q2d_worst_term(fit32, fit64):
+    """The (n, m) term whose f32 sag is farthest from f64 over the disk, and that error."""
+    from prysm_tpu_torch.polynomials import Q2d_nm_c_to_a_b, compute_z_Q2d
+    from prysm_tpu_torch.steps import FREEFORM_Q2D_NMS
+    worst = (0.0, None)
+    for nm, c in zip(FREEFORM_Q2D_NMS, fit32.coefs['q2d']):
+        terms = Q2d_nm_c_to_a_b([nm], [c])
+        err = masked_rel(compute_z_Q2d(*terms, fit32.u, fit32.t),
+                         compute_z_Q2d(*terms, fit64.u, fit64.t), fit32.mask)
+        worst = max(worst, (err, nm), key=lambda w: w[0])
+    return worst
+
+
+def phase_freeform(dev):
+    """The freeform fit in f32 through its entry point, against the same path in f64."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import FREEFORM_FAMILIES, build_freeform_fit
+
+    # cfg2's TF32 scope must have put the switch back: lstsq's Gram matrix is full f32
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            'TF32 is on after the cfg2 phase: set_matmul_precision left it off')
+    fit32 = build_freeform_fit(N, device=dev)
+    zk.reset_launches()
+    noise.reset_launches()
+    out = synced(fit32)
+    counts = {**zk.LAUNCHES, **noise.LAUNCHES}
+    print(f'  launches on the freeform path: {json.dumps(counts)}')
+    require(counts == {'zernike_fwd': 1, 'zernike_bwd_coefs': 0, 'zernike_bwd_all': 0,
+                       'noise_expose': 0},
+            f'the freeform fit launched {counts}, not one Zernike forward')
+    for k, v in out.items():
+        for a in (v if isinstance(v, tuple) else (v,)):
+            require(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+                    f'freeform {k}: not finite float32')
+    fit64 = build_freeform_fit(N, dtype=torch.float64, device=dev, fused=False)
+    ref = synced(fit64)
+    mask = fit32.mask
+    print(f'  freeform: {len(fit32.coefs["q2d"])} Q2d terms, peak |z| on the disk '
+          f'{float(ref["z"][mask].abs().max()):.4e} mm, residual RMS {float(out["residual_rms"]):.6e} '
+          f'(f64 {float(ref["residual_rms"]):.6e}) mm, reconstruction vs f64 '
+          f'{masked_rel(out["recon"], ref["recon"], mask):.3e} of peak')
+    sag = masked_rel(out['z'], ref['z'], mask)
+    if sag > 1e-5:
+        err, nm = q2d_worst_term(fit32, fit64)
+        print(f'  freeform: the f32 sag misses its bar; the worst single term is (n, m) = {nm} '
+              f'at {err:.3e} of its peak')
+    checks = [('Q2d sag (peak rel, r <= 1)', sag, 1e-5),
+              ('Q2d radial slope dz/du (peak rel, r <= 1)', masked_rel(out['dr'], ref['dr'], mask),
+               1e-4),
+              ('Q2d azimuthal slope dz/dt (peak rel, r <= 1)',
+               masked_rel(out['dt'], ref['dt'], mask), 1e-4)]
+    for name in FREEFORM_FAMILIES:
+        for what, a, b in zip(('z', 'dz/dx', 'dz/dy'), out[name], ref[name]):
+            checks.append((f'{name} {what} (peak rel, r <= 1)', masked_rel(a, b, mask), 1e-4))
+    checks += [('lstsq coefficients (rel to max |c|)', rel(out['coefs'], ref['coefs']), 1e-4),
+               ('residual RMS (rel to f64)',
+                abs(float(out['residual_rms']) / float(ref['residual_rms']) - 1), 1e-3)]
+    run_checks(checks)
+    return fit32
+
+
+def phase_image_chain(dev):
+    """The image chain in f32 through its entry point, against f64; the target's threshold flips."""
+    from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
+    from prysm_tpu_torch.objects import siemensstar
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import IMAGE_SPOKES, build_image_chain
+
+    star = {dt: siemensstar(*cart_to_polar(*make_xy_grid(N, diameter=2.0, dtype=dt, device=dev)),
+                            IMAGE_SPOKES) for dt in (torch.float32, torch.float64)}
+    flips = star[torch.float32] != star[torch.float64].float()
+    # cos(18 t) is 0 on the diagonals (t = 9 pi / 36 and its odd multiples): there the
+    # star is 0.5 but for rounding, and each dtype rounds it to its own side
+    x, y = make_xy_grid(N, diameter=2.0, dtype=torch.float64, device=dev)
+    print(f'  image chain: share of target pixels a star built in f32 flips at its threshold '
+          f'{float(flips.double().mean()):.3e}, {int(flips.sum())} pixels, '
+          f'{int((flips & (x.abs() == y.abs())).sum())} of them on the diagonals '
+          '(the chains take the f64 star, cast)')
+    chain32 = build_image_chain(N, device=dev, target=star[torch.float64].float())
+    zk.reset_launches()
+    noise.reset_launches()
+    img = synced(chain32)
+    no_kernel_launches('image chain')
+    for a in img:
+        require(a.shape == (N, N) and a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+                'an image-chain image is not a finite (1024, 1024) f32 map')
+    img64 = synced(build_image_chain(N, dtype=torch.float64, device=dev, target=star[torch.float64]))
+    run_checks([('image chain conv (peak rel)', rel(img[0], img64[0]), 1e-5),
+                ('image chain transfer functions (peak rel)', rel(img[1], img64[1]), 1e-5)])
+    return chain32
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
@@ -802,7 +918,8 @@ def step_ms(fns, runs=40, warmup=5):
 
 
 def device_breakdown(fn, steps=10, top=5):
-    """Device ms per step from torch.profiler, and the kernels that take the most."""
+    """(device ms per step, device kernels per step, the kernels that take the most) from
+    torch.profiler."""
     synced(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -814,11 +931,11 @@ def device_breakdown(fn, steps=10, top=5):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return total_ms, [(e.key[:48], e.self_device_time_total / 1e3 / steps)
-                      for e in events[:top]]
+    return total_ms, sum(e.count for e in events) / steps, [
+        (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
 
 
-def phase_timing(dev, smi, frame5, step3, chain4):
+def phase_timing(dev, smi, frame5, step3, chain4, fit, image):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
@@ -836,20 +953,40 @@ def phase_timing(dev, smi, frame5, step3, chain4):
     calls['cfg3_forward_ms'] = lambda: step3.forward(step3.coefs)
     calls['cfg3_step_ms'] = lambda: step3(step3.coefs)
     calls['cfg4_chain_ms'] = chain4
+    calls['freeform_fit_ms'] = fit
+    calls['image_chain_ms'] = image
     timing = step_ms(calls)
     for k, v in timing.items():
         print(f'{smi} | {k} {v:.4f}', flush=True)
-    for name, key, unit in (('cfg2', 'cfg2_step_ms_high', 'step'),
-                            ('cfg1', 'cfg1_step_ms', 'step'),
-                            ('cfg5', 'cfg5_frame_ms', 'frame'),
-                            ('cfg3_forward', 'cfg3_forward_ms', 'call'),
-                            ('cfg3', 'cfg3_step_ms', 'step'),
-                            ('cfg4', 'cfg4_chain_ms', 'chain')):
+    # the freeform fit's parts, in turns: the Q2d sag, the fit (lstsq, the
+    # fused reconstruction, the residual) and the other sag families
+    z = fit.sag()[0]
+    parts = {'freeform_sag_ms': fit.sag, 'freeform_lstsq_recon_ms': lambda: fit.fit(z),
+             'freeform_families_ms': fit.families}
+    timing.update(step_ms(parts, runs=20))
+    calls.update(parts)
+    for k in parts:
+        print(f'{smi} | {k} {timing[k]:.4f}', flush=True)
+    for name, key, unit, steps in (('cfg2', 'cfg2_step_ms_high', 'step', 10),
+                                   ('cfg1', 'cfg1_step_ms', 'step', 10),
+                                   ('cfg5', 'cfg5_frame_ms', 'frame', 10),
+                                   ('cfg3_forward', 'cfg3_forward_ms', 'call', 10),
+                                   ('cfg3', 'cfg3_step_ms', 'step', 10),
+                                   ('cfg4', 'cfg4_chain_ms', 'chain', 10),
+                                   ('freeform_fit', 'freeform_fit_ms', 'call', 3),
+                                   ('freeform_sag', 'freeform_sag_ms', 'call', 2),
+                                   ('freeform_lstsq_recon', 'freeform_lstsq_recon_ms', 'call', 2),
+                                   ('freeform_families', 'freeform_families_ms', 'call', 2),
+                                   ('image_chain', 'image_chain_ms', 'call', 10)):
         wall = timing[key]
-        busy, top = device_breakdown(calls[key])
+        busy, kernels_per, top = device_breakdown(calls[key], steps=steps)
+        zk.reset_launches()
+        noise.reset_launches()
+        synced(calls[key])
+        launched = sum({**zk.LAUNCHES, **noise.LAUNCHES}.values())
         print(f'{smi} | {name}_device_ms_per_{unit} {busy:.4f} busy share '
-              f'{busy / wall:.3f}; top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top),
-              flush=True)
+              f'{busy / wall:.3f}; device kernels per {unit} {kernels_per:.0f}, hand-written '
+              f'{launched}; top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
 
     # the cfg2 MDFT alone: does cuBLAS take TF32 for complex64?
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1038,9 +1175,17 @@ def main():
     noise.reset_launches()
     phase_executors(dev)
     torch.cuda.synchronize()
+    print(f'phase 3f: freeform fit (Q2d sag and slopes, 36-mode Zernike fit, sag families at '
+          f'{N}^2) {stamp()}', flush=True)
+    fit = phase_freeform(dev)
+    torch.cuda.synchronize()
+    print(f'phase 3g: image chain (Siemens star through the flagship PSF, OTF, smear, jitter at '
+          f'{N}^2) {stamp()}', flush=True)
+    image = phase_image_chain(dev)
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
-    kernels = phase_timing(dev, smi, frame5, step3, chain4)
+    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

@@ -9,15 +9,38 @@ was not asked for another device raises: the port never drops to the CPU
 on its own.  Functions that take tensors follow the device of their inputs.
 
 Matmul precision: torch's default full-fp32 matmul matches the JAX
-package's pinned ``'highest'``.  TF32 is never turned on globally; the
-MDFT plan scopes it around its own matmuls when asked for ``'high'``
-(``fttools.MDFT``).
+package's pinned ``'highest'``.  ``set_matmul_precision`` changes it for
+the process; the MDFT plan scopes TF32 around its own matmuls when asked
+for ``'high'`` (``fttools.MDFT``) and restores the setting after.
 """
 import numbers
 
+import numpy as np
 import torch
 
-__all__ = ['config', 'Config', 'resolve_device']
+__all__ = ['config', 'Config', 'resolve_device', 'set_matmul_precision', 'to_tensor']
+
+# the JAX package's matmul modes, as torch's TF32 switch for float32 matmuls
+_TF32_FOR_MODE = {'highest': False, 'high': True, 'default': True}
+
+
+def set_matmul_precision(mode):
+    """Set the process-wide float32 matmul precision: 'highest' | 'high' | 'default'.
+
+    The JAX package's modes map onto ``torch.backends.cuda.matmul.allow_tf32``:
+
+    * 'highest' (the port's default): TF32 off, full float32 products;
+    * 'high': TF32 on, products of 10-bit mantissas summed in float32;
+    * 'default': TF32 on as well.  It is not bf16 on the H100: torch has no
+      switch that sends float32 matmuls to bf16 products, so the fastest
+      float32 path cuBLAS offers is TF32, which is what 'default' selects.
+
+    It touches float32 (and complex64) matmuls on CUDA tensors only; float64
+    and CPU matmuls are exact whatever the mode.
+    """
+    if mode not in _TF32_FOR_MODE:
+        raise ValueError(f"mode must be one of {tuple(_TF32_FOR_MODE)}, got {mode!r}")
+    torch.backends.cuda.matmul.allow_tf32 = _TF32_FOR_MODE[mode]
 
 _COMPLEX_FOR_REAL = {
     torch.float16: torch.complex64,
@@ -103,3 +126,25 @@ def complex_for(dtype):
     if dtype.is_complex:
         return dtype
     return _COMPLEX_FOR_REAL[dtype]
+
+
+def to_tensor(x, device=None):
+    """``x`` as a tensor: tensors pass through unchanged (graph and device kept).
+
+    numpy arrays keep a floating or complex dtype; Python numbers and lists
+    (and integer or boolean arrays) take ``config.precision``, or
+    ``config.precision_complex`` when complex, as the JAX package's
+    ``jnp.asarray`` takes its working dtype.  New tensors go to ``device``
+    (default ``config.device``, which raises without a card unless it is
+    the CPU).
+    """
+    if torch.is_tensor(x):
+        return x
+    a = np.asarray(x)
+    if a.dtype.kind == 'c':
+        dtype = None if isinstance(x, np.ndarray) else config.precision_complex
+    elif a.dtype.kind == 'f' and isinstance(x, np.ndarray):
+        dtype = None
+    else:
+        dtype = config.precision
+    return torch.as_tensor(a, dtype=dtype, device=resolve_device(device))

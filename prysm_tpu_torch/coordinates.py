@@ -10,7 +10,7 @@ numpy, as in the JAX package.
 import numpy as np
 import torch
 
-from .conf import config, resolve_device
+from .conf import config, resolve_device, to_tensor
 from .fttools import fftrange
 
 __all__ = ['optimize_xy_separable', 'broadcast_1d_to_2d', 'cart_to_polar',
@@ -49,15 +49,21 @@ def broadcast_1d_to_2d(x, y):
 
 
 def cart_to_polar(x, y, vec_to_grid=True):
-    """(rho, phi) polar coordinates of the (x, y) input points."""
-    if vec_to_grid and x.ndim == 1:
+    """(rho, phi) polar coordinates of the (x, y) input points.
+
+    Python numbers take ``config.precision`` on ``config.device``; 1-D
+    tensors (``vec_to_grid``) give the grid of their outer product.
+    """
+    if vec_to_grid and hasattr(x, 'ndim') and x.ndim == 1:
         y = y[:, None]
         x = x[None, :]
+    x, y = to_tensor(x), to_tensor(y)
     return torch.hypot(x, y), torch.atan2(y, x)
 
 
 def polar_to_cart(rho, phi):
     """(x, y) cartesian coordinates of the (rho, phi) input points."""
+    phi = to_tensor(phi)
     return rho * torch.cos(phi), rho * torch.sin(phi)
 
 

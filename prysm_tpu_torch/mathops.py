@@ -6,18 +6,21 @@ PyTorch.
 """
 import torch
 
+from .conf import to_tensor
+
 __all__ = ['cis', 'cexp', 'jinc', 'row_dot', 'is_odd', 'is_power_of_2', 'sign',
            'kronecker', 'gamma']
 
 
 def cis(theta):
-    """exp(i theta) for real theta, as a native complex tensor."""
+    """exp(i theta) for real theta, as a native complex tensor (Python numbers too)."""
+    theta = to_tensor(theta)
     return torch.polar(torch.ones_like(theta), theta)
 
 
 def cexp(z):
     """exp(z) for complex z: exp(Re z) * (cos(Im z) + i sin(Im z)); real z gives exp(z)."""
-    z = torch.as_tensor(z)
+    z = to_tensor(z)
     if not z.is_complex():
         return torch.exp(z)
     return torch.exp(z.real) * cis(z.imag)
@@ -29,7 +32,7 @@ def jinc(r):
     The singular point is substituted before the division, so the function
     is differentiable away from it.
     """
-    r = torch.as_tensor(r)
+    r = to_tensor(r)
     near0 = torch.abs(r) < 1e-8
     safe = torch.where(near0, torch.ones_like(r), r)
     return torch.where(near0, torch.full_like(r, 0.5), _j1(safe) / safe)
@@ -41,7 +44,7 @@ def _j1(x):
     The same rational forms and constants as the JAX package, so both
     packages evaluate the same function (not ``torch.special.bessel_j1``).
     """
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     ax = torch.abs(x)
 
     # |x| < 8: polynomial in x^2

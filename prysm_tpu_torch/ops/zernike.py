@@ -514,7 +514,9 @@ def zernike_sum_pallas(coefs, nms, r, t, norm=True, grads='all'):
         return torch.zeros_like(r)
     if r.ndim != 2 or t.ndim != 2 or r.shape != t.shape:
         raise ValueError('zernike_sum_pallas requires 2D r, t grids of one shape')
-    coefs = torch.as_tensor(coefs, device=r.device)
+    # a list takes the grids' dtype; a tensor keeps its dtype and its graph
+    coefs = (coefs.to(r.device) if torch.is_tensor(coefs)
+             else torch.as_tensor(coefs, dtype=r.dtype, device=r.device))
     if coefs.shape != (len(nms),):
         raise ValueError(f'coefs must have shape ({len(nms)},), got {tuple(coefs.shape)}')
     return _ZernikeSum.apply(coefs, r, t, _plan(nms, bool(norm)), grads)

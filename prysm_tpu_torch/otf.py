@@ -13,7 +13,7 @@ import numbers
 import torch
 
 from ._richdata import RichData
-from .conf import config, resolve_device
+from .conf import config, resolve_device, to_tensor
 from .coordinates import make_xy_grid
 from .mathops import _j1
 
@@ -285,13 +285,13 @@ def analytical_encircled_energy_circular_aperture(fno, wavelength, points):
 
     EE(r) = 1 - J0^2(pi r / (wvl fno)) - J1^2(pi r / (wvl fno)).
     """
-    p = torch.as_tensor(points) * math.pi / fno / wavelength
+    p = to_tensor(points) * math.pi / fno / wavelength
     return 1 - _j0(p) ** 2 - _j1(p) ** 2
 
 
 def _j0(x):
     """Bessel J0 by the Abramowitz & Stegun rational approximations."""
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     ax = torch.abs(x)
     y = x * x
     num_s = 57568490574.0 + y * (-13362590354.0 + y * (651619640.7 + y * (
@@ -325,7 +325,7 @@ def diffraction_limited_mtf(fno, wavelength, frequencies=None, samples=128, dtyp
             0, 1, samples, dtype=config.precision if dtype is None else dtype,
             device=resolve_device(device))
     else:
-        normalized_frequency = torch.abs(torch.as_tensor(frequencies) / extinction)
+        normalized_frequency = torch.abs(to_tensor(frequencies, device) / extinction)
         normalized_frequency = torch.clamp(normalized_frequency, max=1)
     mtf = _difflim_mtf_core(normalized_frequency)
     if frequencies is None:
@@ -341,7 +341,7 @@ def _difflim_mtf_core(normalized_frequency):
 
 def longexposure_otf(nu, Cn, z, f, lambdabar, h_z_by_r=2.91):
     """Long exposure atmospheric OTF (Goodman, Statistical Optics 8.5-37/38)."""
-    nu = torch.as_tensor(nu) / 1e3
+    nu = to_tensor(nu) / 1e3
     f = f / 1e3
     lambdabar = lambdabar / 1e6
     power = 5 / 3

@@ -64,6 +64,8 @@ class Wavefront:
         """Wavefront from amplitude and OPD (nm); phase=None means zero OPD."""
         if phase is None:
             return cls(amplitude, wavelength, dx)
+        if not torch.is_tensor(amplitude):  # a scalar amplitude multiplies in
+            return cls(amplitude * cis(_phase_scale(wavelength) * phase), wavelength, dx)
         amplitude = amplitude.to(phase.dtype)
         return cls(torch.polar(amplitude, _phase_scale(wavelength) * phase),
                    wavelength, dx)

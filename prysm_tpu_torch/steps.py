@@ -21,7 +21,15 @@ Counterparts, without any timing harness, of
   and the lens built once as plan tensors;
 * ``bench.py`` cfg5: a 6-wavelength Babinet Lyot coronagraph at a 512^2
   pupil -> Q=1 focus -> RGGB mosaic -> detector exposure through the
-  noise kernel -> Malvar demosaic.
+  noise kernel -> Malvar demosaic;
+* the freeform-surface metrology path: a Forbes Q2d surface's sag and
+  slopes on a 1024^2 grid over the unit disk, a least-squares fit of the
+  first 36 Noll Zernikes to the sag, its reconstruction through the fused
+  Zernike sum and the masked residual RMS, with the other sag families
+  that freeform raytracing evaluates (Chebyshev, XY, radial Jacobi,
+  Zernike, each with its Cartesian slopes);
+* the image-simulation path: a 36-spoke Siemens star convolved with the
+  flagship PSF, and blurred by that PSF's OTF, a smear and a jitter.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -29,7 +37,9 @@ for cfg1, the MTF); ``build_cfg3_step`` one that takes the segment
 coefficients and returns the encircled energy, the PSF and the energy's
 coefficient gradient; ``build_cfg4_chain`` one that returns the
 intensity; ``build_cfg5_frame`` one that takes a seed and returns the
-demosaicked frame.
+demosaicked frame; ``build_freeform_fit`` one that returns the sag, the
+fit and the sag families; ``build_image_chain`` one that returns the two
+blurred images.
 """
 from dataclasses import dataclass
 
@@ -38,13 +48,21 @@ import torch
 
 from .bayer import composite_bayer, demosaic_malvar
 from .conf import config, complex_for
+from .convolution import apply_transfer_functions, conv
 from .coordinates import make_xy_grid, cart_to_polar
+from .degradations import jitter_ft, smear_ft
 from .detector import Detector
+from .fttools import crop_center
 from .geometry import circle_sdf, antialias
+from .objects import siemensstar
 from .ops.zernike import zernike_sum_pallas
 from .otf import mtf_from_psf, encircled_energy, _encircled_energy_rfft_weights
 from .parallel import plan_mdft_spectral
-from .polynomials import zernike_nm_seq, sum_of_2d_modes
+from .polynomials import (zernike_nm_seq, sum_of_2d_modes, zernike_sum, noll_to_nm,
+                          normalize_modes, lstsq, Q2d_nm_c_to_a_b, compute_z_zprime_Q2d,
+                          cheby1_2d_sum_der_xy, xy_sum_der_xy, jacobi_radial_sum_der_xy,
+                          zernike_sum_der_xy)
+from .polynomials.fitting import _mode_norms
 from .propagation import (Wavefront, babinet, focus, prepare_executor,
                           angular_spectrum_transfer_function, pupil_sample_to_psf_sample)
 from .segmented import CompositeHexagonalAperture
@@ -52,7 +70,8 @@ from .segmented import CompositeHexagonalAperture
 __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step', 'CFG3_NMS',
            'build_cfg3_step', 'build_cfg4_chain', 'CFG5_WVLS', 'CFG5_DETECTOR',
-           'build_cfg5_frame']
+           'build_cfg5_frame', 'FREEFORM_Q2D_NMS', 'FREEFORM_FIT_NMS', 'FREEFORM_FAMILIES',
+           'freeform_coefficients', 'build_freeform_fit', 'build_image_chain']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -359,3 +378,149 @@ def build_cfg5_frame(N=512, dtype=None, device=None):
     deterministic part of the chain, ``frame.detector`` the detector.
     """
     return _Cfg5Frame(N, dtype=dtype, device=device)
+
+
+# the freeform-fit path: every Q2d term with 0 <= n <= 8 and -8 <= m <= 8
+# (Q2d_nm_c_to_a_b takes them all), the first 36 Noll Zernikes that are
+# fitted, and the other sag families that freeform raytracing evaluates,
+# each with its terms; every coefficient from one generator, 1e-4 (mm) rms
+FREEFORM_Q2D_NMS = tuple((n, m) for n in range(9) for m in range(-8, 9))
+FREEFORM_FIT_NMS = tuple(noll_to_nm(j) for j in range(1, 37))
+FREEFORM_FAMILIES = {
+    'cheby1_2d_sum_der_xy': tuple((m, n) for m in range(9) for n in range(9)),
+    'xy_sum_der_xy': tuple((m, n) for m in range(11) for n in range(11) if m + n <= 10),
+    'jacobi_radial_sum_der_xy': tuple(range(11)),
+    'zernike_sum_der_xy': tuple((n, m) for n in range(9) for m in range(-n, n + 1, 2)),
+}
+FREEFORM_SEED, FREEFORM_SCALE = 11, 1e-4
+
+
+def freeform_coefficients():
+    """{'q2d': [...], family: [...]}: the path's coefficients, host floats in drawing order."""
+    rng = np.random.default_rng(FREEFORM_SEED)
+    out = {'q2d': rng.normal(scale=FREEFORM_SCALE, size=len(FREEFORM_Q2D_NMS)).tolist()}
+    for name, terms in FREEFORM_FAMILIES.items():
+        out[name] = rng.normal(scale=FREEFORM_SCALE, size=len(terms)).tolist()
+    return out
+
+
+class _FreeformFit:
+    """The freeform-surface metrology path; calling it gives a dict of its results.
+
+    Planned once: the N^2 grid over the unit disk (``x``, ``y``; ``u`` = r
+    and the angle ``t``; ``mask`` where r <= 1), the Q2d surface's
+    (cm0, ams, bms) from ``Q2d_nm_c_to_a_b``, and the fit's basis: the
+    first 36 Noll Zernikes, normalized to unit RMS over the mask
+    (``modes``), with the RMS of each (``scale``).
+    """
+
+    def __init__(self, N, dtype=None, device=None, fused=True):
+        dtype = config.precision if dtype is None else dtype
+        self.fused = fused
+        self.x, self.y = make_xy_grid(N, diameter=2.0, dtype=dtype, device=device)
+        self.u, self.t = cart_to_polar(self.x, self.y)
+        self.mask = self.u <= 1
+        self.coefs = freeform_coefficients()
+        self.cm0, self.ams, self.bms = Q2d_nm_c_to_a_b(FREEFORM_Q2D_NMS, self.coefs['q2d'])
+        raw = zernike_nm_seq(FREEFORM_FIT_NMS, self.u, self.t)
+        self.scale = _mode_norms(raw, self.mask)
+        self.modes = normalize_modes(raw, self.mask)
+
+    def sag(self):
+        """(z, dz/du, dz/dt) of the Q2d surface."""
+        return compute_z_zprime_Q2d(self.cm0, self.ams, self.bms, self.u, self.t)
+
+    def fit(self, z):
+        """(coefficients on the normalized basis, reconstruction, masked residual RMS)."""
+        coefs = lstsq(self.modes, torch.where(self.mask, z, torch.full_like(z, float('nan'))))
+        if self.fused:
+            # the same sum on the Zernike-normed basis, by the fused synthesis
+            recon = zernike_sum(coefs / self.scale, FREEFORM_FIT_NMS, self.x, self.y)
+        else:
+            recon = sum_of_2d_modes(self.modes, coefs)
+        resid = torch.where(self.mask, z - recon, torch.zeros_like(z))
+        return coefs, recon, torch.sqrt(torch.sum(resid * resid) / torch.sum(self.mask))
+
+    def families(self):
+        """{family: (z, dz/dx, dz/dy)} of the other sag families on the grid."""
+        x, y, c, terms = self.x, self.y, self.coefs, FREEFORM_FAMILIES
+        return {
+            'cheby1_2d_sum_der_xy': cheby1_2d_sum_der_xy(
+                c['cheby1_2d_sum_der_xy'], terms['cheby1_2d_sum_der_xy'], x, y),
+            'xy_sum_der_xy': xy_sum_der_xy(c['xy_sum_der_xy'], terms['xy_sum_der_xy'], x, y),
+            'jacobi_radial_sum_der_xy': jacobi_radial_sum_der_xy(
+                c['jacobi_radial_sum_der_xy'], terms['jacobi_radial_sum_der_xy'], 0, 0, x, y, 1.0),
+            'zernike_sum_der_xy': zernike_sum_der_xy(
+                c['zernike_sum_der_xy'], terms['zernike_sum_der_xy'], x, y),
+        }
+
+    def __call__(self):
+        """{'z', 'dr', 'dt', 'coefs', 'recon', 'residual_rms', family: (z, dz/dx, dz/dy)}."""
+        z, dr, dt = self.sag()
+        coefs, recon, rms = self.fit(z)
+        return {'z': z, 'dr': dr, 'dt': dt, 'coefs': coefs, 'recon': recon,
+                'residual_rms': rms, **self.families()}
+
+
+def build_freeform_fit(N=1024, dtype=None, device=None, fused=True):
+    """The freeform-surface metrology path on an N^2 grid over the unit disk.
+
+    A Forbes Q2d surface (every term to n = 8, |m| = 8, 1e-4 mm rms
+    coefficients from ``np.random.default_rng(11)``) gives its sag and
+    radial and azimuthal slopes; the first 36 Noll Zernikes, normalized
+    over the disk, are fitted to the sag by least squares (NaN outside the
+    disk), and the fit is reconstructed through ``zernike_sum`` (the fused
+    synthesis: its CUDA kernel on the card) or, with ``fused=False``, from
+    the normalized mode stack; then the masked residual RMS.  The same call
+    evaluates the Chebyshev, XY, radial Jacobi and Zernike sag families with
+    their Cartesian slopes.  Returns a callable ``fit()`` giving a dict of
+    the results.
+    """
+    return _FreeformFit(N, dtype=dtype, device=device, fused=fused)
+
+
+# the image-simulation path: the target's spokes, and the smear (width, height)
+# and jitter scale in pixels
+IMAGE_SPOKES, IMAGE_SMEAR, IMAGE_JITTER = 36, (2.0, 0.0), 1.0
+
+
+class _ImageChain:
+    """The image-simulation path; calling it gives (conv image, transfer-function image).
+
+    Planned once: the ``target``, a Siemens star, the flagship ``psf``
+    (the central N^2 of ``entry``'s 2N^2 PSF, normalized to unit sum) and
+    its ``otf`` in FFT order.  The transfer functions run in pixel units
+    (dx = 1).
+    """
+
+    def __init__(self, N, dtype=None, device=None, target=None):
+        dtype = config.precision if dtype is None else dtype
+        if target is None:
+            x, y = make_xy_grid(N, diameter=2.0, dtype=dtype, device=device)
+            target = siemensstar(*cart_to_polar(x, y), IMAGE_SPOKES)
+        forward, args = entry(N, dtype=dtype, device=target.device)
+        with torch.no_grad():
+            psf = crop_center(forward(*args)[0], (N, N))
+        self.target, self.psf = target, psf / psf.sum()
+        self.otf = torch.fft.fft2(torch.fft.ifftshift(self.psf, dim=(-2, -1)))
+        self.tfs = [self.otf,
+                    lambda fx, fy: smear_ft(fx, fy, *IMAGE_SMEAR),
+                    lambda fr: jitter_ft(fr, IMAGE_JITTER)]
+
+    def __call__(self):
+        """(target * PSF, target through the OTF, smear and jitter transfer functions)."""
+        return conv(self.target, self.psf), apply_transfer_functions(self.target, 1.0, self.tfs)
+
+
+def build_image_chain(N=1024, dtype=None, device=None, target=None):
+    """The image-simulation path at N^2: a 36-spoke Siemens star through the flagship PSF.
+
+    ``conv`` convolves the target with the PSF; ``apply_transfer_functions``
+    multiplies its spectrum by the PSF's OTF (an array), a 2-pixel smear
+    (``smear_ft``) and a 1-pixel Gaussian jitter (``jitter_ft``), both
+    callables.  The PSF is ``entry(N)``'s, cropped to N^2 and normalized;
+    ``target`` defaults to the star on an N^2 grid over the unit disk (pass
+    another N^2 scene, such as the star built in another dtype).  Returns
+    a callable ``chain()`` giving the two images.
+    """
+    return _ImageChain(N, dtype=dtype, device=device, target=target)

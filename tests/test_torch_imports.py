@@ -42,7 +42,15 @@ SLICE5_MODULES = ('mathops', 'coordinates', 'geometry', 'otf', 'segmented', 'ftt
                   'propagation.coronagraph', 'steps', 'interop')
 
 
-@pytest.mark.parametrize('module', SLICE5_MODULES)
+# the polynomial families and the image-simulation modules of the freeform /
+# image-chain slice
+SLICE6_MODULES = tuple(f'polynomials.{m}' for m in (
+    '_recurrence', '_clenshaw', 'jacobi', 'cheby', 'legendre', 'hermite', 'laguerre', 'dickson',
+    'xy', 'zernike', 'fitting', 'qpoly')) + ('objects', 'degradations', 'degredations',
+                                             'convolution', 'conf')
+
+
+@pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')

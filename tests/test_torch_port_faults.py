@@ -1,0 +1,142 @@
+"""Pins of the port's faults against the JAX package, each fixed: the same inputs, the same answer.
+
+With ``jax_enable_x64`` on and ``config.precision = 64`` (CPU), the port
+must give the JAX package's float64 results where it used to round to
+float32, and take the inputs the JAX package takes:
+
+1. list coefficients of the fused Zernike sum keep the grids' dtype;
+2. Python numbers and lists take ``config.precision`` (``mathops``, ``otf``,
+   ``psf``);
+3. ``cart_to_polar`` / ``polar_to_cart`` take Python numbers;
+4. ``Wavefront.from_amp_and_phase`` takes a scalar amplitude;
+5. ``sum_of_2d_modes`` and its adjoint take a list of mode arrays;
+6. ``conf.set_matmul_precision`` exists and maps onto the TF32 switch,
+   and the MDFT's TF32 scope restores the setting it found;
+7. (found beside them) ``mathops.cis`` takes Python numbers and numpy arrays.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from prysm_tpu import coordinates as jcoords
+from prysm_tpu import mathops as jmath
+from prysm_tpu import otf as jotf
+from prysm_tpu import psf as jpsf
+from prysm_tpu.polynomials import zernike as jzern
+from prysm_tpu.polynomials import fitting as jfit
+from prysm_tpu.propagation import Wavefront as JWavefront
+
+from prysm_tpu_torch import coordinates, mathops, otf, psf
+from prysm_tpu_torch.conf import config
+from prysm_tpu_torch.polynomials import zernike, fitting
+from prysm_tpu_torch.propagation import Wavefront
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def f64_on_cpu(monkeypatch):
+    monkeypatch.setattr(config, '_precision', torch.float64)
+    monkeypatch.setattr(config, '_device', 'cpu')
+
+
+def _rel(a, b):
+    a = a.detach().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _grid8():
+    x, y = np.meshgrid(np.linspace(-1, 0.75, 8), np.linspace(-0.9, 0.85, 8))
+    return x, y
+
+
+def test_fault1_zernike_sum_list_coefficients_keep_float64():
+    nms = [(2, 0), (3, 1), (4, -2)]
+    coefs = [0.1, 1e-3, 123.456789]
+    x, y = _grid8()
+    got = zernike.zernike_sum(coefs, nms, torch.from_numpy(x), torch.from_numpy(y))
+    want = jzern.zernike_sum(coefs, nms, jnp.asarray(x), jnp.asarray(y))
+    assert got.dtype == torch.float64
+    assert _rel(got, want) <= 1e-13
+    # a tensor that requires grad keeps its graph
+    c = torch.tensor(coefs, dtype=torch.float64, requires_grad=True)
+    zernike.zernike_sum(c, nms, torch.from_numpy(x), torch.from_numpy(y)).sum().backward()
+    assert c.grad is not None and bool(torch.isfinite(c.grad).all())
+
+
+def test_fault2_python_numbers_take_config_precision():
+    assert _rel(psf.airydisk(1.0, 8, 0.55), jpsf.airydisk(1.0, 8, 0.55)) <= 1e-13
+    assert _rel(otf.diffraction_limited_mtf(8, 0.55, [10., 100.]),
+                jotf.diffraction_limited_mtf(8, 0.55, [10., 100.])) <= 1e-13
+    for v in (0.3, 2.5, 11.0):
+        assert _rel(mathops.jinc(v), jmath.jinc(v)) <= 1e-13
+        assert _rel(mathops._j1(v), jmath._j1(v)) <= 1e-13
+        assert _rel(otf._j0(v), jotf._j0(v)) <= 1e-13
+        assert _rel(mathops.cexp(v), jmath.cexp(v)) <= 1e-13
+    assert _rel(mathops.cexp(0.2 + 1.3j), jmath.cexp(0.2 + 1.3j)) <= 1e-13
+    assert _rel(otf.analytical_encircled_energy_circular_aperture(10.0, 0.5, 6.0),
+                jotf.analytical_encircled_energy_circular_aperture(10.0, 0.5, 6.0)) <= 1e-13
+    args = (50.0, 1e-9, 10.0, 500.0, 0.55)
+    assert _rel(otf.longexposure_otf(*args), jotf.longexposure_otf(*args)) <= 1e-13
+    assert psf.airydisk(1.0, 8, 0.55).dtype == torch.float64
+
+
+def test_fault3_polar_conversions_take_python_numbers():
+    got, want = coordinates.cart_to_polar(1.0, -2.0), jcoords.cart_to_polar(1.0, -2.0)
+    assert all(_rel(g, w) <= 1e-15 for g, w in zip(got, want))
+    got, want = coordinates.polar_to_cart(2.0, 0.5), jcoords.polar_to_cart(2.0, 0.5)
+    assert all(_rel(g, w) <= 1e-15 for g, w in zip(got, want))
+    r = torch.linspace(0, 1, 5, dtype=torch.float64)
+    got, want = coordinates.polar_to_cart(r, 0.5), jcoords.polar_to_cart(jnp.asarray(r.numpy()), 0.5)
+    assert all(_rel(g, w) <= 1e-15 for g, w in zip(got, want))
+
+
+def test_fault4_wavefront_takes_a_scalar_amplitude():
+    phase = np.random.default_rng(0).normal(scale=50.0, size=(6, 7))
+    got = Wavefront.from_amp_and_phase(0.5, torch.from_numpy(phase), 0.55, 0.1)
+    want = JWavefront.from_amp_and_phase(0.5, jnp.asarray(phase), 0.55, 0.1)
+    assert got.data.dtype == torch.complex128
+    assert _rel(got.data, want.data) <= 1e-13
+
+
+def test_fault5_mode_sums_take_a_list_of_modes():
+    rng = np.random.default_rng(1)
+    modes, w, bar = rng.normal(size=(3, 5, 6)), rng.normal(size=3), rng.normal(size=(5, 6))
+    listed = [torch.from_numpy(m) for m in modes]
+    assert _rel(fitting.sum_of_2d_modes(listed, torch.from_numpy(w)),
+                jfit.sum_of_2d_modes(list(modes), w)) <= 1e-13
+    assert _rel(fitting.sum_of_2d_modes_adjoint(listed, torch.from_numpy(bar)),
+                jfit.sum_of_2d_modes_adjoint(list(modes), jnp.asarray(bar))) <= 1e-13
+
+
+def test_fault6_set_matmul_precision_maps_onto_tf32():
+    from prysm_tpu_torch.conf import set_matmul_precision
+    from prysm_tpu_torch.fttools import _tf32_matmuls
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for mode, flag in (('highest', False), ('high', True), ('default', True)):
+            set_matmul_precision(mode)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+        with pytest.raises(ValueError):
+            set_matmul_precision('bf16')
+        # the MDFT's TF32 scope restores what it found, either way
+        for mode, flag in (('highest', False), ('high', True)):
+            set_matmul_precision(mode)
+            with _tf32_matmuls():
+                assert torch.backends.cuda.matmul.allow_tf32 is True
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert 'not bf16' in set_matmul_precision.__doc__
+
+
+def test_fault7_cis_takes_python_numbers_and_numpy():
+    assert _rel(mathops.cis(0.3), jmath.cis(0.3)) <= 1e-15
+    theta = np.linspace(-3, 3, 7)
+    got = mathops.cis(theta)
+    assert got.dtype == torch.complex128
+    assert _rel(got, jmath.cis(theta)) <= 1e-15
