@@ -19,7 +19,9 @@ Phases, each of which raises on a failed check:
    kernels in two launches) and both norms, the coefficient cotangents
    also mode by mode, each against its own size, bit-identical from run
    to run (the coefficient backward's and the full backward's), one
-   device kernel per call (per piece of a longer program), the blocks
+   device kernel per call (per piece of a longer program) and no other
+   device operation, counted from the nodes of a CUDA graph captured from
+   the call and, where the profiler recorded a trace, from it, the blocks
    each kernel keeps resident,
    the largest |difference| for the kernels line taken over NMS6, the
    main path's plan; the noise kernel on the cfg5 mean-electron map (1 and
@@ -65,8 +67,17 @@ Phases, each of which raises on a failed check:
       flagship PSF, and through its OTF, a smear and a jitter) against f64
       on the card, the star built once in f64 and cast, with the share of
       pixels whose threshold a star built in f32 would flip;
-   the paths of c-e and g run no hand-written kernel: their launch counts,
-   set to 0 before each, must read 0 after it;
+   h. cfg6 (bench.py's doublet + singlet: two model glasses, three spheres,
+      EPD 20, fields 0/1/2 degrees, ``Sampling.hex(64)``: 37,443 rays in one
+      merged bundle) through ``steps.build_cfg6_trace`` and
+      ``build_cfg6_grad`` (the mean field RMS spot radius about each chief
+      ray and its gradient with respect to the three curvatures) in f32
+      against f64 on the card: every ray OK with the same status in both,
+      landing points, total OPL, the EIC closing onto each field's
+      chief-centered sphere through the paraxial exit pupil, and the
+      gradient;
+   the paths of c-e, g and h run no hand-written kernel: their launch
+   counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
    warm (inputs left in L2 by the call before), per call of its plain
@@ -80,11 +91,12 @@ Phases, each of which raises on a failed check:
    cfg5 map and the full backward on the 45 modes to n = 8 (the 32-slot
    kernel) and the 66 to n = 10 (two launches), each beside its bound;
    the cfg3 forward, the cfg3 forward + gradient, the cfg4 chain, the
-   freeform fit and the image chain are timed in turns with the steps and
-   the frame (the freeform fit's three parts, sag, fit and families, in a
-   second round of turns), each with its device time, busy share, device
-   kernels and hand-written kernel launches per call and longest device
-   operations;
+   freeform fit, the image chain, the cfg6 trace at hex(64) and at
+   hex(256) (592,131 rays) and the cfg6 gradient step are timed in turns
+   with the steps and the frame (the freeform fit's three parts, sag, fit
+   and families, in a second round of turns), each with its device time,
+   busy share, device kernels and hand-written kernel launches per call
+   and longest device operations; cfg6's host launch on its own line;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -246,23 +258,66 @@ def zernike_grids(dev):
     return grids
 
 
-def kernels_per_call(fn, tries=3):
+def kernels_per_call(fn, tries=5):
     """Names of the device kernels one fn() call runs (torch.profiler), after a warm call.
 
     Every call launches at least one kernel, so a trace with none lost its
-    device records (it happens, rarely, on the card's profiler) and is
-    taken again, up to ``tries`` times.
+    device records (the card's profiler does so at times, more than once in
+    a row) and is taken again, a little later each time, up to ``tries``
+    times; [] if every trace came back empty.
     """
     synced(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
+    for attempt in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             synced(fn)
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
+        time.sleep(0.25 * (attempt + 1))
     return names
+
+
+# CUgraphNodeType (cuda.h)
+GRAPH_NODE_KINDS = {0: 'kernel', 1: 'memcpy', 2: 'memset', 3: 'host', 4: 'graph', 5: 'empty',
+                    6: 'wait event', 7: 'event record', 8: 'semaphore signal',
+                    9: 'semaphore wait', 10: 'mem alloc', 11: 'mem free', 12: 'batch mem op',
+                    13: 'conditional'}
+
+
+def device_ops_per_call(fn, dev):
+    """The kinds of the device operations one fn() call enqueues, from the nodes of a
+    CUDA graph captured from it (the driver API's cuGraphGetNodes), with no profiler.
+
+    fn runs once on the default stream and once on the capture stream first,
+    so that its caches and per-stream state (the Zernike reduction ticket)
+    are made outside the capture. The graph is never replayed.
+    """
+    import ctypes
+    synced(fn)
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        synced(fn)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cuda = ctypes.CDLL('libcuda.so.1')
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+            'cuGraphGetNodes failed to count the nodes')
+    nodes = (ctypes.c_void_p * count.value)()
+    require(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+            'cuGraphGetNodes failed to list the nodes')
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        require(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                'cuGraphNodeGetType failed')
+        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    del graph
+    torch.cuda.synchronize()
+    return [k for k in kinds if k != 'empty']
 
 
 def phase_kernels(dev):
@@ -331,17 +386,26 @@ def phase_kernels(dev):
                 again = synced(lambda: zk._launch_bwd_all(plan, c, r, t, g))
                 require(torch.equal(again[0], cases['zernike_bwd_all'][0][0]),
                         f'zernike_bwd_all is not bit-identical from run to run on {what}')
-    # one launch per call (per piece): no second reduction kernel, no fill
+    # one launch per call (per piece): no second reduction kernel, no fill;
+    # counted from a captured CUDA graph, and from the profiler's trace
+    # where the profiler recorded one
     _, r, t, g = zernike_grids(dev)[0]
     for nms in (NMS6, NMS66):
         plan, c = zk._plan(nms, True), torch.randn(len(nms), generator=gen).to(dev)
         for name, fn in (('zernike_fwd', lambda: zk._launch_fwd(plan, c, r, t)),
                          ('zernike_bwd_coefs', lambda: zk._launch_bwd_coefs(plan, r, t, g)),
                          ('zernike_bwd_all', lambda: zk._launch_bwd_all(plan, c, r, t, g))):
+            ops = device_ops_per_call(fn, dev)
             names = kernels_per_call(fn)
-            print(f'  {name} K={len(nms)}: device kernels per call {names}', flush=True)
-            require(len(names) == pieces[nms], f'{name} ran {len(names)} device kernels per '
-                                               f'call for {len(nms)} modes, not {pieces[nms]}')
+            print(f'  {name} K={len(nms)}: device operations per call (graph) {ops}; '
+                  f'device kernels per call (profiler) '
+                  f'{names or "not measured: every trace came back empty"}', flush=True)
+            require(ops == ['kernel'] * pieces[nms],
+                    f'{name} enqueued {ops} per call for {len(nms)} modes, not '
+                    f'{pieces[nms]} kernel(s)')
+            require(not names or len(names) == pieces[nms],
+                    f'{name} ran {len(names)} device kernels per call for {len(nms)} modes '
+                    f'in the profiler\'s trace, not {pieces[nms]}')
     return worst
 
 
@@ -844,6 +908,64 @@ def phase_image_chain(dev):
     return chain32
 
 
+def phase_cfg6(dev):
+    """cfg6 in f32 through its entry points, against f64 on the card."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import build_cfg6_grad, build_cfg6_trace
+    from prysm_tpu_torch.x.raytracing.spencer_and_murty import eic_closing
+
+    trace32 = build_cfg6_trace(device=dev)
+    grad32 = build_cfg6_grad(device=dev)
+    zk.reset_launches()
+    noise.reset_launches()
+    res = synced(trace32)
+    loss32, g32, rms32 = synced(grad32)
+    no_kernel_launches('cfg6')
+    n_surf, rays = len(trace32.surfaces), trace32.P.shape[0]
+    require(rays == 3 * 12481 and res.P.shape == (n_surf + 1, rays, 3)
+            and res.OPL.shape == (n_surf + 1, rays) and res.P.dtype == torch.float32
+            and res.status.dtype == torch.complex64,
+            f'cfg6: P {tuple(res.P.shape)} {res.P.dtype}, OPL {tuple(res.OPL.shape)}, '
+            f'status {res.status.dtype}')
+    res64 = synced(build_cfg6_trace(dtype=torch.float64, device=dev))
+    loss64, g64, rms64 = synced(build_cfg6_grad(dtype=torch.float64, device=dev))
+    ok32, ok64 = res.status.imag == 0, res64.status.imag == 0
+    require(bool(ok64.all()) and bool(ok32.all()), f'cfg6: {int((~ok32).sum())} f32 and '
+            f'{int((~ok64).sum())} f64 rays of {rays} fail; every ray reaches the image')
+    require(torch.equal(res.status.to(torch.complex128), res64.status),
+            'cfg6: the f32 and f64 traces end with other statuses')
+    require(bool(torch.isfinite(res.P[-1]).all()) and bool(torch.isfinite(g32).all()),
+            'cfg6: landing points or gradient not finite')
+    L32, L64 = res.OPL.sum(0), res64.OPL.sum(0)
+
+    # EIC closing of the image-plane bundle onto each field's chief-centered
+    # sphere, through the paraxial exit pupil
+    fo = trace32.system._ynu_first_order()
+    F, Nf = trace32.n_fields, trace32.n_rays
+
+    def closing(r):
+        P_end = r.P[-1].reshape(F, Nf, 3)
+        center = P_end[torch.arange(F), torch.as_tensor(trace32.chiefs)]
+        P_xp = torch.tensor([0.0, 0.0, fo.xp_z], dtype=P_end.dtype, device=dev)
+        kappa = 1.0 / torch.linalg.norm(P_xp - center, dim=-1)
+        return eic_closing(P_end, r.S[-1].reshape(F, Nf, 3), center[:, None], kappa[:, None])[0]
+
+    s32, s64 = closing(res), closing(res64)
+    print(f'  cfg6: {n_surf} surfaces, {rays} rays ({F} fields x {Nf}), all OK in f32 and f64; '
+          f'XP z {fo.xp_z:.4f} mm; spot loss {float(loss32):.6e} (f64 {float(loss64):.6e}) mm, '
+          f'field RMS radii f64 {[round(float(v), 6) for v in rms64]}; '
+          f'|d loss / dc| f64 {[f"{float(v):.6g}" for v in g64]}')
+    run_checks([
+        ('cfg6 landing points vs f64 (mm)', float((res.P[-1].double() - res64.P[-1]).abs().max()),
+         1e-4),
+        ('cfg6 total OPL vs f64 (rel to max |OPL|)', rel(L32, L64), 1e-5),
+        ('cfg6 EIC closing vs f64 (mm)', float((s32.double() - s64).abs().max()), 5e-5),
+        ('cfg6 curvature gradient vs f64 (rel)', rel(g32, g64), 1e-3),
+    ])
+    return trace32, grad32
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
@@ -917,25 +1039,31 @@ def step_ms(fns, runs=40, warmup=5):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def device_breakdown(fn, steps=10, top=5):
+def device_breakdown(fn, steps=10, top=5, tries=3):
     """(device ms per step, device kernels per step, the kernels that take the most) from
-    torch.profiler."""
+    torch.profiler; None if every trace lost its device records (see kernels_per_call)."""
     synced(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's own device time repeats its kernels'
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's own device time repeats its kernels'
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        time.sleep(0.25 * (attempt + 1))
+    else:
+        return None
     total_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return total_ms, sum(e.count for e in events) / steps, [
         (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
 
 
-def phase_timing(dev, smi, frame5, step3, chain4, fit, image):
+def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
@@ -955,6 +1083,14 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image):
     calls['cfg4_chain_ms'] = chain4
     calls['freeform_fit_ms'] = fit
     calls['image_chain_ms'] = image
+    # cfg6 at the checked hex(64) and, for the card's own time beside the
+    # launch overhead, the same system at hex(256): 3 x 197,377 rays
+    from prysm_tpu_torch.steps import build_cfg6_trace
+    from prysm_tpu_torch.x.raytracing import Sampling
+    trace256 = build_cfg6_trace(Sampling.hex(256), device=dev)
+    calls['cfg6_trace_ms'] = trace6
+    calls['cfg6_trace_hex256_ms'] = trace256
+    calls['cfg6_grad_ms'] = grad6
     timing = step_ms(calls)
     for k, v in timing.items():
         print(f'{smi} | {k} {v:.4f}', flush=True)
@@ -977,16 +1113,35 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image):
                                    ('freeform_sag', 'freeform_sag_ms', 'call', 2),
                                    ('freeform_lstsq_recon', 'freeform_lstsq_recon_ms', 'call', 2),
                                    ('freeform_families', 'freeform_families_ms', 'call', 2),
-                                   ('image_chain', 'image_chain_ms', 'call', 10)):
+                                   ('image_chain', 'image_chain_ms', 'call', 10),
+                                   ('cfg6_trace', 'cfg6_trace_ms', 'call', 10),
+                                   ('cfg6_trace_hex256', 'cfg6_trace_hex256_ms', 'call', 5),
+                                   ('cfg6_grad', 'cfg6_grad_ms', 'step', 5)):
         wall = timing[key]
-        busy, kernels_per, top = device_breakdown(calls[key], steps=steps)
+        breakdown = device_breakdown(calls[key], steps=steps)
         zk.reset_launches()
         noise.reset_launches()
         synced(calls[key])
         launched = sum({**zk.LAUNCHES, **noise.LAUNCHES}.values())
+        if breakdown is None:
+            print(f'{smi} | {name}_device_ms_per_{unit} not measured (every profiler trace '
+                  f'came back empty); hand-written {launched}', flush=True)
+            continue
+        busy, kernels_per, top = breakdown
         print(f'{smi} | {name}_device_ms_per_{unit} {busy:.4f} busy share '
               f'{busy / wall:.3f}; device kernels per {unit} {kernels_per:.0f}, hand-written '
               f'{launched}; top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
+
+    # cfg6's host launch (paraxial aiming, 3 fields of hex(64)) on its own
+    from prysm_tpu_torch.x.raytracing.batch import _host_launches
+    system6 = trace6.system
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _host_launches(system6, list(system6.fields), 0.55, trace6.sampling, None)
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f'{smi} | cfg6_host_launch_ms {statistics.median(host):.4f} (host wall, '
+          f'{trace6.P.shape[0]} rays)', flush=True)
 
     # the cfg2 MDFT alone: does cuBLAS take TF32 for complex64?
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1183,9 +1338,13 @@ def main():
           f'{N}^2) {stamp()}', flush=True)
     image = phase_image_chain(dev)
     torch.cuda.synchronize()
+    print(f'phase 3h: cfg6 (doublet + singlet, 3 fields x hex(64) = 37,443 rays, merged trace '
+          f'and curvature gradient) {stamp()}', flush=True)
+    trace6, grad6 = phase_cfg6(dev)
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
-    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image)
+    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

@@ -14,11 +14,13 @@ the process; the MDFT plan scopes TF32 around its own matmuls when asked
 for ``'high'`` (``fttools.MDFT``) and restores the setting after.
 """
 import numbers
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
-__all__ = ['config', 'Config', 'resolve_device', 'set_matmul_precision', 'to_tensor']
+__all__ = ['config', 'Config', 'resolve_device', 'set_matmul_precision', 'to_tensor',
+           'numpy_dtype', 'precision_as']
 
 # the JAX package's matmul modes, as torch's TF32 switch for float32 matmuls
 _TF32_FOR_MODE = {'highest': False, 'high': True, 'default': True}
@@ -50,6 +52,14 @@ _COMPLEX_FOR_REAL = {
 }
 
 _BY_DEPTH = {16: torch.float16, 32: torch.float32, 64: torch.float64}
+
+# host numpy dtype of each working dtype (numpy has no bfloat16: float32 holds it)
+_NUMPY_FOR = {
+    torch.float16: np.float16,
+    torch.bfloat16: np.float32,
+    torch.float32: np.float32,
+    torch.float64: np.float64,
+}
 
 
 class Config:
@@ -119,6 +129,26 @@ def resolve_device(device=None):
             "available; pass device='cpu' or set "
             "prysm_tpu_torch.config.device = 'cpu' to run on the CPU")
     return dev
+
+
+def numpy_dtype(dtype=None):
+    """The host numpy dtype of a real torch dtype (default ``config.precision``).
+
+    A table, not a round trip through a tensor: host planners call it
+    inside ``torch.func`` transforms, where building a tensor fails.
+    """
+    return np.dtype(_NUMPY_FOR[config.precision if dtype is None else dtype])
+
+
+@contextmanager
+def precision_as(dtype):
+    """Run a block with ``config.precision`` set to ``dtype``, restored after."""
+    saved = config._precision
+    config.precision = dtype
+    try:
+        yield
+    finally:
+        config._precision = saved
 
 
 def complex_for(dtype):

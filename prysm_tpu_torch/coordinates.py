@@ -10,7 +10,7 @@ numpy, as in the JAX package.
 import numpy as np
 import torch
 
-from .conf import config, resolve_device, to_tensor
+from .conf import config, numpy_dtype, resolve_device, to_tensor
 from .fttools import fftrange
 
 __all__ = ['optimize_xy_separable', 'broadcast_1d_to_2d', 'cart_to_polar',
@@ -22,11 +22,6 @@ __all__ = ['optimize_xy_separable', 'broadcast_1d_to_2d', 'cart_to_polar',
            'pack_xy_to_homographic_points', 'apply_homography',
            'solve_for_planar_homography', 'warp', 'uniform_cart_to_polar',
            'resample_2d', 'distort_annular_grid', 'chebygauss_quadrature_xy']
-
-
-def _numpy_dtype(dtype):
-    """The numpy dtype of a torch dtype."""
-    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 def _tensor(a, dtype=None, device=None):
@@ -83,7 +78,7 @@ def make_xy_grid(shape, *, dx=0, diameter=0, grid=True, host=False, dtype=None, 
     if dtype is None:
         dtype = config.precision
     if host:
-        npdtype = _numpy_dtype(dtype)
+        npdtype = numpy_dtype(dtype)
         y, x = (np.fft.fftshift(np.fft.fftfreq(s, 1 / s)).astype(npdtype) * dx
                 for s in shape)
         if grid:
@@ -151,7 +146,7 @@ def make_rotation_matrix(zyx, radians=False, host=False, dtype=None, device=None
     Rz = np.asarray([[c3, -s3, 0], [s3, c3, 0], [0, 0, 1]])
     out = Rx @ Ry @ Rz
     if host:
-        return out.astype(_numpy_dtype(config.precision if dtype is None else dtype))
+        return out.astype(numpy_dtype(config.precision if dtype is None else dtype))
     return _tensor(out, dtype, device)
 
 

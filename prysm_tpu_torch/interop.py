@@ -18,7 +18,7 @@ from .steps import Pupil
 
 __all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_numpy',
            'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
-           'spectral_mdft_from_numpy', 'detector_from_numpy']
+           'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -129,3 +129,70 @@ def detector_from_numpy(dark_current, read_noise, bias, fwc, conversion_gain, bi
     maps = [None if a is None else _tensor(a, dev) for a in (prnu, dcnu, lut)]
     return Detector(float(dark_current), float(read_noise), float(bias), float(fwc),
                     float(conversion_gain), int(bits), float(exposure_time), *maps)
+
+
+def _material_from_row(spec):
+    """None, a constant index, or (formula name, coefficients) as a material."""
+    from .x.materials import ConstantMaterial, FormulaMaterial, formulas
+    if spec is None:
+        return None
+    if isinstance(spec, (int, float, np.floating)):
+        return ConstantMaterial(float(spec))
+    name, coefs = spec
+    return FormulaMaterial(name, getattr(formulas, name),
+                           tuple(float(c) for c in np.ravel(coefs)))
+
+
+def _clip_from_row(spec):
+    """None, ('circular', r, x0, y0) or ('annular', r_in, r_out, x0, y0)."""
+    from .x.raytracing.aperture import annular_aperture, circular_aperture
+    if spec is None:
+        return None
+    kind, *vals = spec
+    make = {'circular': circular_aperture, 'annular': annular_aperture}[kind]
+    return make(*(float(v) for v in vals))
+
+
+def _param_from_row(v):
+    """Shape parameters as the JAX package's constructors hold them:
+    numbers as Python floats (ints and bools kept), arrays as nested tuples."""
+    if isinstance(v, (bool, int, str)) or v is None:
+        return v
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return a.item()
+    return tuple(_param_from_row(x) for x in a)
+
+
+def surfaces_from_numpy(rows, device=None, dtype=None):
+    """The port's compiled surface list from a prescription flattened to numpy.
+
+    Each row is a dict: ``kind`` (a shape kind of ``surfaces.SHAPE_MODELS``)
+    and ``params`` (its parameter dict, numbers and arrays), ``P`` (3,) and
+    ``R`` (3, 3) or None, ``interaction`` (an STYPE code or its name),
+    ``material`` (None, a constant index, or (formula name in
+    ``x.materials.formulas``, coefficients)), and ``clip`` (None,
+    ``('circular', r, x0, y0)`` or ``('annular', r_in, r_out, x0, y0)``).
+    Poses are kept on the host in ``dtype`` (default ``config.precision``)
+    and their tensor copies made on ``device`` (default ``config.device``)
+    once, here, so that a trace there reads them from the surface.
+    """
+    from .conf import config, precision_as
+    from .x.raytracing.surfaces import Shape, Surface
+    dev = resolve_device(device)
+    dtype = config.precision if dtype is None else dtype
+    out = []
+    with precision_as(dtype):
+        for row in rows:
+            params = {k: _param_from_row(v) for k, v in row['params'].items()}
+            interaction = row['interaction']
+            if not isinstance(interaction, str):
+                interaction = int(interaction)
+            surf = Surface(Shape(row['kind'], params), interaction,
+                           P=np.asarray(row['P'], dtype=np.float64),
+                           R=None if row.get('R') is None else np.asarray(row['R']),
+                           material=_material_from_row(row.get('material')),
+                           aperture=_clip_from_row(row.get('clip')))
+            surf.pose_like(torch.empty(0, dtype=dtype, device=dev))
+            out.append(surf)
+    return out

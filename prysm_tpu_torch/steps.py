@@ -29,7 +29,11 @@ Counterparts, without any timing harness, of
   that freeform raytracing evaluates (Chebyshev, XY, radial Jacobi,
   Zernike, each with its Cartesian slopes);
 * the image-simulation path: a 36-spoke Siemens star convolved with the
-  flagship PSF, and blurred by that PSF's OTF, a smear and a jitter.
+  flagship PSF, and blurred by that PSF's OTF, a smear and a jitter;
+* ``bench.py`` cfg6: a cemented doublet and a rear singlet (three
+  spheres, two model glasses), 3 fields and a hexapolar pupil traced as
+  one merged ray bundle, and the gradient of the image-plane RMS spot
+  radius with respect to the three curvatures.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -39,7 +43,9 @@ coefficient gradient; ``build_cfg4_chain`` one that returns the
 intensity; ``build_cfg5_frame`` one that takes a seed and returns the
 demosaicked frame; ``build_freeform_fit`` one that returns the sag, the
 fit and the sag families; ``build_image_chain`` one that returns the two
-blurred images.
+blurred images; ``build_cfg6_trace`` one that returns the
+``RayTraceResult`` of the merged bundle, ``build_cfg6_grad`` one that
+returns the spot loss and its curvature gradient.
 """
 from dataclasses import dataclass
 
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from .bayer import composite_bayer, demosaic_malvar
-from .conf import config, complex_for
+from .conf import config, complex_for, precision_as, resolve_device
 from .convolution import apply_transfer_functions, conv
 from .coordinates import make_xy_grid, cart_to_polar
 from .degradations import jitter_ft, smear_ft
@@ -71,7 +77,9 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'build_cfg1_step', 'make_cfg2_plan', 'build_cfg2_step', 'CFG3_NMS',
            'build_cfg3_step', 'build_cfg4_chain', 'CFG5_WVLS', 'CFG5_DETECTOR',
            'build_cfg5_frame', 'FREEFORM_Q2D_NMS', 'FREEFORM_FIT_NMS', 'FREEFORM_FAMILIES',
-           'freeform_coefficients', 'build_freeform_fit', 'build_image_chain']
+           'freeform_coefficients', 'build_freeform_fit', 'build_image_chain',
+           'CFG6_CURVATURES', 'CFG6_THICKNESSES', 'CFG6_GLASSES', 'CFG6_FIELDS', 'CFG6_EPD',
+           'CFG6_STOP', 'CFG6_RINGS', 'cfg6_system', 'build_cfg6_trace', 'build_cfg6_grad']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -524,3 +532,132 @@ def build_image_chain(N=1024, dtype=None, device=None, target=None):
     a callable ``chain()`` giving the two images.
     """
     return _ImageChain(N, dtype=dtype, device=device, target=target)
+
+
+# cfg6: the doublet + singlet of bench.py's cfg6, in mm: sphere curvatures,
+# the gap after each, the (nd, Vd, name) of each model glass behind its
+# sphere (air behind the last), the y fields in degrees, the entrance pupil
+# diameter, the stop surface, and the hexapolar rings of the launch
+CFG6_CURVATURES = (1 / 62.0, -1 / 45.0, -1 / 128.0)
+CFG6_THICKNESSES = (6.0, 3.0, 95.0)
+CFG6_GLASSES = ((1.5168, 64.17, 'BK7ish'), (1.6727, 32.2, 'SF5ish'))
+CFG6_FIELDS = (0.0, 1.0, 2.0)
+CFG6_EPD, CFG6_STOP, CFG6_RINGS = 20.0, 1, 64
+
+
+def cfg6_system():
+    """bench.py's cfg6 OpticalSystem, built through the port's LensData (host)."""
+    from .x import materials as mat, raytracing as rt
+    lens = rt.LensData()
+    media = [mat.model_glass(nd, vd, name=name) for nd, vd, name in CFG6_GLASSES] + [mat.air]
+    for c, t, medium in zip(CFG6_CURVATURES, CFG6_THICKNESSES, media):
+        lens.add(rt.Sphere(c), thickness=t, material=medium)
+    return rt.OpticalSystem(lens, aperture=rt.ApertureSpec.epd(CFG6_EPD),
+                            fields=list(CFG6_FIELDS), wavelengths=[WVL],
+                            stop_index=CFG6_STOP)
+
+
+class _Cfg6Trace:
+    """cfg6's merged trace; calling it traces the uploaded bundle.
+
+    Planned once on the host: the system, its compiled surfaces, and the
+    paraxially aimed launch of every field (``batch._host_launches``, in
+    float64), merged into one (F*N, 3) bundle and uploaded in ``dtype``.
+    """
+
+    def __init__(self, sampling=None, dtype=None, device=None):
+        from .x.raytracing import Sampling
+        from .x.raytracing.batch import _chief_indices, _host_launches
+        self.dtype = config.precision if dtype is None else dtype
+        dev = resolve_device(device)
+        self.sampling = Sampling.hex(CFG6_RINGS) if sampling is None else sampling
+        self.system = cfg6_system()
+        self.surfaces = self.system.to_surfaces()
+        P, S = _host_launches(self.system, list(self.system.fields), WVL, self.sampling, None)
+        self.n_fields, self.n_rays = P.shape[:2]
+        self.chiefs = _chief_indices(P)
+        self.P = torch.as_tensor(P.reshape(-1, 3), dtype=self.dtype, device=dev)
+        self.S = torch.as_tensor(S.reshape(-1, 3), dtype=self.dtype, device=dev)
+
+    def trace(self, surfaces):
+        """raytrace of the bundle through ``surfaces`` in this plan's dtype."""
+        from .x.raytracing import raytrace
+        with precision_as(self.dtype):
+            return raytrace(surfaces, self.P, self.S, WVL)
+
+    def __call__(self):
+        """The RayTraceResult: P, S (n_surf+1, F*N, 3), OPL (n_surf+1, F*N), status."""
+        return self.trace(self.surfaces)
+
+
+def build_cfg6_trace(sampling=None, dtype=None, device=None):
+    """bench.py's cfg6: the doublet + singlet, 3 fields, one merged trace.
+
+    ``model_glass(1.5168, 64.17)`` and ``model_glass(1.6727, 32.2)`` behind
+    spheres of curvature 1/62, -1/45 and -1/128 with gaps 6, 3 and 95 mm;
+    EPD 20, y fields 0, 1 and 2 degrees, stop at surface 1, 0.55 um.
+    ``sampling`` defaults to ``Sampling.hex(64)``: 3 x 12,481 = 37,443
+    rays.  The launch is planned on the host and uploaded once to
+    ``device`` (default ``config.device``) in ``dtype`` (default
+    ``config.precision``); each call traces it in that dtype and returns
+    the ``RayTraceResult``.
+    """
+    return _Cfg6Trace(sampling, dtype=dtype, device=device)
+
+
+class _Cfg6Grad(_Cfg6Trace):
+    """cfg6's spot loss and its gradient with respect to the three curvatures."""
+
+    def __init__(self, sampling=None, dtype=None, device=None):
+        super().__init__(sampling, dtype=dtype, device=device)
+        self.curvatures = torch.tensor(CFG6_CURVATURES, dtype=self.dtype, device=self.P.device)
+        self.chief_onehot = torch.zeros(self.n_fields, self.n_rays, dtype=self.dtype,
+                                        device=self.P.device)
+        self.chief_onehot[torch.arange(self.n_fields), torch.as_tensor(self.chiefs)] = 1.0
+
+    def surfaces_with(self, curvatures):
+        """The compiled surfaces with each sphere rebuilt as Sphere(c_k), c_k a tensor."""
+        from .x.raytracing import Sphere, Surface
+        out, k = [], 0
+        for surf in self.surfaces:
+            if surf.shape.kind == 'sphere':
+                surf = Surface(Sphere(curvatures[k]), surf.typ, P=surf.P, R=surf.R,
+                               material=surf.material, aperture=surf.aperture)
+                k += 1
+            out.append(surf)
+        return out
+
+    def loss(self, curvatures):
+        """(mean over fields of the RMS spot radius about the chief, per-field radii)."""
+        res = self.trace(self.surfaces_with(curvatures))
+        F, N = self.n_fields, self.n_rays
+        xy = res.P[-1][:, :2].reshape(F, N, 2)
+        alive = (res.status.imag == 0).reshape(F, N)
+        # the chief by a one-hot sum, selected before the product (dead rays hold NaN)
+        chief = torch.einsum('fn,fnc->fc', self.chief_onehot,
+                             torch.where(self.chief_onehot[..., None] > 0, xy, 0.0))
+        r2 = torch.where(alive, ((xy - chief[:, None]) ** 2).sum(-1), 0.0)
+        rms = torch.sqrt(r2.sum(-1) / alive.sum(-1))
+        return rms.mean(), rms
+
+    def __call__(self, curvatures=None):
+        """(loss, d loss / d curvatures (3,), per-field RMS radii) at ``curvatures``."""
+        c = self.curvatures if curvatures is None else curvatures
+        c = c.detach().to(self.dtype).requires_grad_(True)
+        loss, rms = self.loss(c)
+        grad, = torch.autograd.grad(loss, c)
+        return loss.detach(), grad, rms.detach()
+
+
+def build_cfg6_grad(sampling=None, dtype=None, device=None):
+    """cfg6's gradient step: d(spot loss)/d(the three sphere curvatures).
+
+    The loss is the mean over the three fields of the image-plane RMS
+    spot radius about each field's chief ray (the pupil-center ray),
+    over the rays that reach the image.  The surfaces are rebuilt from
+    the compiled ones' poses and materials with ``Sphere(c_k)`` shapes
+    whose curvatures are tensors, and autograd gives the gradient.  The
+    launch is ``build_cfg6_trace``'s.  Returns a callable
+    ``step(curvatures=None)`` giving (loss, gradient, per-field radii).
+    """
+    return _Cfg6Grad(sampling, dtype=dtype, device=device)

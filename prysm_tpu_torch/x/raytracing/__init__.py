@@ -1,0 +1,186 @@
+"""Differentiable sequential raytracing (Spencer & Murty) in PyTorch.
+
+Counterpart of ``prysm_tpu/x/raytracing/__init__.py`` for the modules
+ported so far: the trace kernel (raytrace / refract / reflect / status),
+surface shapes, apertures, intersections, OPL modifiers, ray generation,
+paraxial first-order analysis, the lens-data editor and OpticalSystem,
+launch and aiming, the spot statistics of ``opt``, and the batched
+merged trace.  A bundle traces as plain elementwise torch on the device
+of its rays and differentiates with autograd.
+
+Not ported yet (ROADMAP Queue 1 item 21): ``analysis``, ``aberrations``,
+``parabasal``, ``listings``, ``field``, ``wavefront_differential``,
+``design``, ``tolerance``, ``auto``, ``io``, ``plotting``, ``sample_rx``
+and ``adjoint``; their names are not exported here.
+"""
+from .spencer_and_murty import (  # NOQA
+    DEFAULT_TOL_SAG,
+    SURFACE_INTERSECTION_DEFAULT_MAXITER,
+    STATUS_CLIP,
+    STATUS_EVANESCENT,
+    STATUS_MISS,
+    STATUS_NEWTON,
+    STATUS_OK,
+    STATUS_TIR,
+    STYPE_EVAL,
+    STYPE_IMG,
+    STYPE_OBJ,
+    STYPE_REFLECT,
+    STYPE_REFRACT,
+    RayStatus,
+    RayTraceResult,
+    decode_status,
+    intersect,
+    newton_raphson_solve_s,
+    raytrace,
+    reflect,
+    refract,
+    transform_to_global_coords,
+    transform_to_local_coords,
+    valid_mask,
+)
+from .surfaces import (  # NOQA
+    Biconic,
+    CallableShape,
+    Chebyshev,
+    Conic,
+    EvenAsphere,
+    Interaction,
+    Jacobi,
+    OffAxisConic,
+    Plane,
+    Q2D,
+    Shape,
+    Sphere,
+    Surface,
+    Toroid,
+    XY,
+    Zernike,
+)
+from .aperture import (  # NOQA
+    AnnularClip,
+    Aperture,
+    Chamfer,
+    CircularClip,
+    CircularExtent,
+    Flat,
+    FlatBackSubstrate,
+    FlatParentSubstrate,
+    ParallelSubstrate,
+    Seat,
+    SquareCut,
+    Substrate,
+    SurfaceSubstrate,
+    annular_aperture,
+    as_aperture,
+    circular_aperture,
+)
+from .intersections import (  # NOQA
+    ray_conic_intersect,
+    seeded_newton_intersect,
+    ray_plane_intersect,
+    ray_sphere_intersect,
+)
+from .paraxial import (  # NOQA
+    FirstOrderProperties,
+    NonAxialSystemError,
+    back_focal_length,
+    effective_focal_length,
+    entrance_pupil_z,
+    front_focal_length,
+    paraxial_image_distance,
+    system_matrix,
+    ynu_first_order,
+)
+from .raygen import (  # NOQA
+    clip_to_aperture,
+    concat_rayfans,
+    generate_collimated_hex_ray_grid,
+    generate_collimated_radial_spiral_ray_grid,
+    generate_collimated_ray_fan,
+    generate_collimated_rect_ray_grid,
+    generate_finite_ray_fan,
+    split_rayfans,
+)
+from .lensdata import (  # NOQA
+    CoordBreak,
+    DesignState,
+    LensData,
+    SurfaceRow,
+    lens_element_groups,
+)
+from .system import (  # NOQA
+    ApertureSpec,
+    FieldSet,
+    OpticalSystem,
+)
+from .launch import (  # NOQA
+    Field,
+    Sampling,
+    launch,
+    solve_apertures,
+    solve_vignetting,
+)
+from .opt import (  # NOQA
+    aim_rays,
+    eic_distance,
+    geometric_psf_histogram,
+    hopkins_eic_closing,
+    locate_ep,
+    locate_xp,
+    reference_sphere_curvature,
+    rms_spot_radius,
+    spot_centroid,
+    xp_reference_sphere,
+)
+from .opl import CallableOPL, LinearGrating, OPLFunc  # NOQA
+from .batch import (  # NOQA
+    device_wavefront_fit,
+    fit_from_trace,
+    merged_trace,
+    unmerge,
+)
+
+# Fraunhofer spectral lines, µm
+FRAUNHOFER_LINES_UM = {
+    'C': 0.6562725,
+    'd': 0.5875618,
+    'F': 0.4861327,
+}
+
+__all__ = [
+    'FRAUNHOFER_LINES_UM', 'LensData', 'SurfaceRow', 'CoordBreak',
+    'DesignState', 'lens_element_groups',
+    'OpticalSystem', 'ApertureSpec', 'FieldSet', 'raytrace', 'refract',
+    'reflect', 'intersect', 'newton_raphson_solve_s',
+    'transform_to_global_coords', 'transform_to_local_coords',
+    'Field', 'Sampling', 'launch', 'solve_apertures', 'solve_vignetting',
+    'aim_rays', 'Surface', 'Shape', 'Interaction',
+    'CallableShape', 'Plane', 'Sphere', 'Conic', 'OffAxisConic',
+    'EvenAsphere', 'Q2D', 'Zernike', 'XY', 'Chebyshev', 'Jacobi',
+    'Toroid', 'Biconic', 'circular_aperture', 'annular_aperture',
+    'as_aperture', 'Aperture', 'AnnularClip', 'CircularClip',
+    'CircularExtent', 'Substrate', 'SurfaceSubstrate',
+    'ParallelSubstrate', 'FlatParentSubstrate', 'FlatBackSubstrate',
+    'Chamfer', 'Flat', 'SquareCut', 'Seat',
+    'ray_conic_intersect', 'seeded_newton_intersect',
+    'ray_plane_intersect', 'ray_sphere_intersect',
+    'FirstOrderProperties', 'NonAxialSystemError', 'system_matrix',
+    'paraxial_image_distance', 'effective_focal_length',
+    'entrance_pupil_z', 'back_focal_length', 'front_focal_length',
+    'ynu_first_order', 'clip_to_aperture', 'concat_rayfans',
+    'generate_collimated_hex_ray_grid',
+    'generate_collimated_radial_spiral_ray_grid',
+    'generate_collimated_ray_fan', 'generate_collimated_rect_ray_grid',
+    'generate_finite_ray_fan', 'split_rayfans',
+    'xp_reference_sphere', 'locate_ep', 'locate_xp', 'eic_distance',
+    'hopkins_eic_closing', 'reference_sphere_curvature',
+    'spot_centroid', 'rms_spot_radius', 'geometric_psf_histogram',
+    'OPLFunc', 'LinearGrating', 'CallableOPL',
+    'RayTraceResult', 'RayStatus', 'decode_status', 'valid_mask',
+    'STYPE_REFLECT', 'STYPE_REFRACT', 'STYPE_EVAL', 'STYPE_OBJ',
+    'STYPE_IMG', 'STATUS_OK', 'STATUS_NEWTON', 'STATUS_CLIP',
+    'STATUS_MISS', 'STATUS_TIR', 'STATUS_EVANESCENT',
+    'DEFAULT_TOL_SAG', 'SURFACE_INTERSECTION_DEFAULT_MAXITER',
+    'device_wavefront_fit', 'fit_from_trace', 'merged_trace', 'unmerge',
+]

@@ -1,0 +1,233 @@
+"""Inner verb namespaces for OpticalSystem (opt / solve / analysis / ...).
+
+Counterpart of ``prysm_tpu/x/raytracing/_namespaces.py``.  Every verb of
+the JAX package is here.  A verb whose module is not ported yet
+(``design``, ``analysis``, ``plotting``, ``tolerance``,
+``wavefront_differential``, ``adjoint``, ``parabasal``, ``listings``)
+raises NotImplementedError naming the module and its ROADMAP item; it
+never falls back to another computation.
+"""
+
+# ROADMAP.md Queue 1 item that ports the rest of x/raytracing/
+REST_OF_RAYTRACING_ITEM = 21
+
+
+def not_ported(name, item=REST_OF_RAYTRACING_ITEM):
+    """Raise NotImplementedError for ``name`` of x/raytracing/, not ported yet."""
+    raise NotImplementedError(
+        f'x/raytracing/{name.split(".")[0]}.py ({name}) is not ported to '
+        f'prysm_tpu_torch yet: ROADMAP.md Queue 1 item {item}')
+
+
+class _OptNamespace:
+    """Design + optimization verbs over the system's DesignState."""
+
+    __slots__ = ('_sys',)
+
+    def __init__(self, system):
+        self._sys = system
+
+    def vary(self, category, surfaces='all'):
+        """Mark a category of DOFs free; returns this namespace to chain."""
+        self._sys._design.vary(category, surfaces)
+        return self
+
+    def vary_all(self):
+        """Mark every scalar DOF free."""
+        self._sys._design.vary_all()
+        return self._sys
+
+    def freeze(self, category, surfaces='all'):
+        """Inverse of vary."""
+        self._sys._design.freeze(category, surfaces)
+        return self._sys
+
+    def freeze_all(self):
+        """Mark every scalar DOF fixed."""
+        self._sys._design.freeze_all()
+        return self._sys
+
+    def constrain(self, category, *, lo=None, hi=None, relative=None,
+                  surfaces='all'):
+        """Box bounds on a category of DOFs."""
+        self._sys._design.constrain(category, lo=lo, hi=hi,
+                                    relative=relative, surfaces=surfaces)
+        return self._sys
+
+    def pickup(self, category, surface, *, from_surface, from_category=None,
+               scale=1.0, offset=0.0):
+        """Make DOFs pickups of others."""
+        self._sys._design.pickup(category, surface,
+                                 from_surface=from_surface,
+                                 from_category=from_category, scale=scale,
+                                 offset=offset)
+        return self._sys
+
+    def pack(self):
+        """Dense free-DOF vector."""
+        return self._sys._design.pack()
+
+    def update(self, x):
+        """Write a free vector back into the rows."""
+        self._sys._design.update(x)
+        return self._sys
+
+    def bounds(self):
+        """(lo, hi) arrays parallel to the free vector."""
+        return self._sys._design.bounds()
+
+    def problem(self, goal='spot', *, sampling=None, fields=None,
+                wavelengths=None, constraints=None):
+        """Assemble a design.Problem over this system's free vector."""
+        not_ported('design.build_problem')
+
+    def optimize(self, goal='spot', *, sampling=None, fields=None,
+                 wavelengths=None, constraints=None, **solve_kwargs):
+        """Build and solve an optimization problem in one shot."""
+        not_ported('design.build_problem')
+
+
+class _SolveNamespace:
+    """State-writing solves."""
+
+    __slots__ = ('_sys',)
+
+    def __init__(self, system):
+        self._sys = system
+
+    def image_distance(self, surface=None, *, wavelength=None):
+        """Paraxial image-distance solve on a gap."""
+        wvl = self._sys.wavelength(wavelength)
+        self._sys._design.solve_image_distance(surface, wavelength=wvl)
+        return self._sys
+
+    def clear_image_distance(self):
+        """Disable the active image-distance solve."""
+        self._sys._design.clear_image_distance_solve()
+        return self._sys
+
+    def apertures(self, fields=None, wavelength=None, *, oversize=1.05):
+        """Size auto surface apertures from the traced footprint."""
+        from .launch import solve_apertures
+        return solve_apertures(self._sys, fields=fields,
+                               wavelength=wavelength, oversize=oversize)
+
+    def vignetting(self, fields=None, wavelength=None, *, tol=1e-3):
+        """Solve and store per-field vignetting factors."""
+        from .launch import solve_vignetting
+        return solve_vignetting(self._sys, fields, wavelength, tol=tol)
+
+
+class _AnalysisNamespace:
+    """Analysis verbs (wavefront, spots, fans, sweeps)."""
+
+    __slots__ = ('_sys',)
+
+    def __init__(self, system):
+        self._sys = system
+
+    def first_order(self, field=0, wavelength=None, **kwargs):
+        """Parabasal first-order properties about a chief ray."""
+        return self._sys.first_order(field=field, wavelength=wavelength,
+                                     **kwargs)
+
+    def exit_pupil(self, wavelength=None, field=None, **kwargs):
+        """Resolved exit-pupil reference point (or None if telecentric)."""
+        return self._sys.exit_pupil(wavelength, field=field, **kwargs)
+
+    def __getattr__(self, name):
+        if name.startswith('__'):
+            raise AttributeError(name)
+        not_ported(f'analysis.{name}')
+
+
+class _PlotNamespace:
+    """Plotting verbs under sys.plot."""
+
+    __slots__ = ('_sys',)
+
+    def __init__(self, system):
+        self._sys = system
+
+    def layout_2d(self, **kwargs):
+        """2D system layout with per-field ray fans."""
+        not_ported('plotting.layout')
+
+    def spots(self, *, fields=None, wavelengths=None, sampling=None,
+              epd=None, reference='centroid', **kwargs):
+        """Spot-diagram grid over fields and wavelengths."""
+        not_ported('plotting.plot_spots')
+
+    def ray_fans(self, *, fields=None, wavelengths=None, nrays=21,
+                 epd=None, distribution='uniform', reference='chief',
+                 **kwargs):
+        """Transverse ray-aberration fan grid."""
+        not_ported('plotting.plot_ray_fans')
+
+    def opd_fans(self, *, fields=None, wavelengths=None, nrays=21,
+                 epd=None, distribution='uniform', stop_index=None,
+                 output='waves', **kwargs):
+        """OPD fan grid."""
+        not_ported('plotting.plot_opd_fans')
+
+    def field_curvature(self, *, fields=None, wavelength=None,
+                        samples=101, **kwargs):
+        """S/T field-curvature plot."""
+        not_ported('plotting.plot_field_curvature')
+
+    def distortion(self, *, fields=None, wavelength=None, epd=None,
+                   samples=101, distortion_type='f-tan', **kwargs):
+        """Percent-distortion plot."""
+        not_ported('plotting.plot_distortion')
+
+    def chromatic_focal_shift(self, *, wavelengths=None, samples=101,
+                              focus='best', epd=None, **kwargs):
+        """Chromatic focal-shift plot."""
+        not_ported('plotting.plot_chromatic_focal_shift')
+
+    def lateral_color(self, *, fields=None, wavelengths=None, epd=None,
+                      samples=101, **kwargs):
+        """Lateral-color plot."""
+        not_ported('plotting.plot_lateral_color')
+
+    def full_field(self, *, metric='rms spot', samples=15, max_field=None,
+                   wavelengths=None, sampling=None, epd=None,
+                   stop_index=None, **kwargs):
+        """Full-field metric map."""
+        not_ported('plotting.plot_full_field')
+
+
+class _TolNamespace:
+    """Tolerancing verbs under sys.tol."""
+
+    __slots__ = ('_sys',)
+
+    def __init__(self, system):
+        self._sys = system
+
+    def sensitivity(self, perturbations, merit, *, step=None):
+        """Centered finite-difference scalar-merit sensitivity table."""
+        not_ported('tolerance.sensitivity_table')
+
+    def monte_carlo(self, perturbations, merit, n_trials, **kwargs):
+        """Monte Carlo sampling of a scalar merit over perturbations."""
+        not_ported('tolerance.monte_carlo')
+
+    def wavefront(self, perturbations, P, S, wavelength=None, **kwargs):
+        """Wavefront differential (Code V TOR) for one launch bundle."""
+        not_ported('wavefront_differential.wavefront_differential')
+
+    def inverse_sensitivity(self, J, budget, **kwargs):
+        """Per-tolerance steps that fit a sensitivity Jacobian to a budget."""
+        not_ported('adjoint.tolerance_analysis.inverse_sensitivity')
+
+    def adjoint_sensitivity(self, perturbations, heads, P, S,
+                            wavelength=None, **kwargs):
+        """Exact multi-objective Jacobian over editor perturbations.
+
+        Builds adjoint seeds from tolerance.Perturbation objects and
+        assembles the M x P Jacobian with one reverse-mode pass per
+        head; feed the result's .jacobian to inverse_sensitivity /
+        rss_prediction for budgeting.
+        """
+        not_ported('adjoint.tolerance_analysis.multi_objective_sensitivity')

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -50,12 +51,77 @@ SLICE6_MODULES = tuple(f'polynomials.{m}' for m in (
                                              'convolution', 'conf')
 
 
-@pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES)
+# the glass models and the sequential raytracer core of the cfg6 slice
+SLICE7_MODULES = ('x', 'x.materials', 'x.materials.formulas', 'x.materials.core',
+                  'x.materials.lookup') + tuple(f'x.raytracing.{m}' for m in (
+                      '__init__', 'spencer_and_murty', 'sagjets', 'sags', 'intersections',
+                      'aperture', 'opl', 'surfaces', '_line_math', '_meta', '_resolve', '_cache',
+                      'paraxial', 'lensdata', 'opt', 'raygen', 'launch', '_trace_grid',
+                      '_namespaces', 'system', 'batch'))
+
+
+def _module_path(module):
+    path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
+    return path if path.exists() else path.with_suffix('') / '__init__.py'
+
+
+@pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
-    path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
+    path = _module_path(module)
     assert path in PORT_FILES
-    importlib.import_module(f'prysm_tpu_torch.{module}')
+    importlib.import_module(f'prysm_tpu_torch.{module}'.removesuffix('.__init__'))
+
+
+def _cfg6_on_cpu(monkeypatch):
+    from prysm_tpu_torch import steps
+    from prysm_tpu_torch.conf import config
+    monkeypatch.setattr(config, '_device', 'cpu')
+    return steps.cfg6_system()
+
+
+def test_parabasal_route_raises_and_does_not_fall_back(monkeypatch):
+    """The JAX package's ``_parabasal_ep_z`` falls back to the paraxial pupil
+    when ``parabasal`` cannot be imported; the port has no ``parabasal`` yet,
+    so that route raises instead of silently changing the launch."""
+    import importlib
+    tlaunch = importlib.import_module('prysm_tpu_torch.x.raytracing.launch')
+    system = _cfg6_on_cpu(monkeypatch)
+    assert not (ROOT / 'prysm_tpu_torch/x/raytracing/parabasal.py').exists()
+    with pytest.raises(NotImplementedError, match='parabasal.*item 21'):
+        tlaunch._parabasal_ep_z(system, system.field(2), 0.55)
+    # real aiming falls into the continuation ladder when its bundle does not
+    # land (here a ray so oblique that it misses the stop sphere wherever it
+    # starts), and the ladder reaches it
+    def no_rung(*args, **kwargs):
+        raise AssertionError('no rung may be built without a field-dependent pupil')
+
+    with pytest.raises(NotImplementedError, match='parabasal'):
+        tlaunch._aim_to_stop_with_ladder(
+            np.asarray([[0.0, 0.0, -10.0]]), np.asarray([[0.0, 0.999, 0.0447]]),
+            np.zeros((1, 2)), no_rung,
+            system.field(2), system, 1, 0.55, False)
+    with pytest.raises(NotImplementedError, match='parabasal'):
+        system.first_order(field=1)
+
+
+@pytest.mark.parametrize('verb', [
+    lambda s: s.exit_pupil(), lambda s: s.list_surfaces(), lambda s: s.lens.list_apertures(),
+    lambda s: s.analysis.spot_diagrams(), lambda s: s.plot.spots(),
+    lambda s: s.opt.problem(), lambda s: s.tol.monte_carlo([], None, 3),
+    lambda s: s.tol.wavefront([], None, None)])
+def test_unported_verbs_raise_naming_the_roadmap_item(monkeypatch, verb):
+    system = _cfg6_on_cpu(monkeypatch)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 item 21'):
+        verb(system)
+
+
+def test_ported_solves_run_on_the_cpu(monkeypatch):
+    """The solve verbs of the ported launch module trace on config.device."""
+    system = _cfg6_on_cpu(monkeypatch)
+    system.solve.apertures(wavelength=0.55)
+    extents = [row.aperture.extent for row in system.rows]
+    assert any(e is not None and e.outer_radius > 9.0 for e in extents)
 
 
 @pytest.mark.parametrize('kind', ['czt', 'fftdft'])
