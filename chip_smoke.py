@@ -76,7 +76,20 @@ Phases, each of which raises on a failed check:
       landing points, total OPL, the EIC closing onto each field's
       chief-centered sphere through the paraxial exit pupil, and the
       gradient;
-   the paths of c-e, g and h run no hand-written kernel: their launch
+   i. the interferometer-analysis path (``steps.build_metrology``: 13
+      phase-shifted frames of a 100 mm flat at 1024^2, de Groot's phase,
+      the DCT least-squares unwrap, an ``Interferogram`` masked, with
+      piston, tilt and power removed and spikes clipped, its statistics and
+      PVr, PSD, band-limited RMS, azimuthal average, lowpass and slopes) in
+      f32 against f64 on the card from the same f64 host frames: the
+      wrapped phase, the map, the analysis on the f64 map cast to f32 and
+      the path end to end, the f64 map against the true surface, the
+      spike-clip and band-edge flips, a Zygo .dat round trip, ``fit_psd``
+      on the card against the CPU, ``profiling.time_fn`` and
+      ``device_memory_stats``; and a 32-layer thin-film stack over 4096
+      wavelengths x 90 angles in complex64 against complex128, with its
+      energy balance;
+   the paths of c-e and g-i run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
@@ -92,11 +105,13 @@ Phases, each of which raises on a failed check:
    kernel) and the 66 to n = 10 (two launches), each beside its bound;
    the cfg3 forward, the cfg3 forward + gradient, the cfg4 chain, the
    freeform fit, the image chain, the cfg6 trace at hex(64) and at
-   hex(256) (592,131 rays) and the cfg6 gradient step are timed in turns
+   hex(256) (592,131 rays), the cfg6 gradient step and the metrology call
+   are timed in turns
    with the steps and the frame (the freeform fit's three parts, sag, fit
    and families, in a second round of turns), each with its device time,
    busy share, device kernels and hand-written kernel launches per call
-   and longest device operations; cfg6's host launch on its own line;
+   and longest device operations; cfg6's host launch, the metrology PSD
+   fit and the thin-film stack on their own lines;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -167,6 +182,24 @@ ZERNIKE_FP32_OPS = {'zernike_fwd': 353 / 4, 'zernike_bwd_coefs': 353 / 4,
 # prologue, and a later piece's adds: 184, 88, 76, 24, 12, 28, 40 and 8 per quad
 KALL32_FP32_OPS = {'launch': 46, 'slot': 22, 'fold': 19, 'turn': 6, 'restart': 3,
                    'pre_turn': 7, 'pre_step': 10, 'add': 2}
+# phase 3i's bars on the float32 metrology path from the frames, against float64,
+# where the suggested ones lie below what the JAX package's own float32 path gives:
+# twice its error on the same 1024^2 frames on the CPU, rounded up
+# (probes/metrology_cpu_probe.py: the unwrap's float32 floor, 9.6e-3 of the map's
+# PV, and what it carries into each output); 'map' is of the map's PV, 'pv'
+# to 'strehl', 'pvr' and 'bandlimited_rms' relative, the rest of their peak
+METROLOGY_E2E_BARS = {'map': 2e-2, 'pv': 3e-2, 'rms': 5e-3, 'Sa': 6e-3, 'std': 5e-3,
+                      'strehl': 2e-4, 'pvr': 2e-2, 'bandlimited_rms': 7e-3, 'psd': 5e-2,
+                      'azavg': 6e-2, 'filtered': 5e-2, 'slope_x': 1e-1, 'slope_y': 3e-2,
+                      'slope': 9e-2}
+# the float32 azimuthal average of the float64 map's PSD: its polar sample
+# points are off by up to 0.025 px (the grid step is a difference of two
+# float32 frequencies near +-N/2 du); the JAX package's is 2.9e-2 of the peak
+METROLOGY_AZAVG_F32_BAR = 6e-2
+# the thin-film check: (HL)^16 quarter-wave at 0.55 um on glass, 4096
+# wavelengths x 90 angles, s and p
+FILM_INDICES, FILM_SUBSTRATE, FILM_WVL0 = (2.35, 1.46) * 16, 1.52, 0.55
+FILM_WVLS, FILM_ANGLES = (0.40, 0.80, 4096), (0.0, 89.0, 90)
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -966,6 +999,185 @@ def phase_cfg6(dev):
     return trace32, grad32
 
 
+def film_stack(dtype, dev):
+    """A callable giving (r_s, t_s, r_p, t_p) of the thin-film check's stack in ``dtype``.
+
+    The inputs are made in f32 and cast, so both precisions take the same
+    indices, thicknesses, wavelengths and angles.
+    """
+    from prysm_tpu_torch.thinfilm import multilayer_stack_rt
+    n = torch.tensor(FILM_INDICES, dtype=torch.float32, device=dev)
+    d = (FILM_WVL0 / (4 * n)).to(dtype)
+    wvl = torch.linspace(*FILM_WVLS, device=dev).to(dtype)[:, None]
+    aoi = torch.linspace(*FILM_ANGLES, device=dev).to(dtype)[None, :]
+    n = n.to(dtype)
+    return lambda: (*multilayer_stack_rt(n, d, wvl, 's', FILM_SUBSTRATE, aoi),
+                    *multilayer_stack_rt(n, d, wvl, 'p', FILM_SUBSTRATE, aoi))
+
+
+def film_energy_balance(rt, dev):
+    """max |R + T - 1| over s and p: T = n_sub cos(t_sub) / cos(aoi) |t|^2 (ambient n = 1)."""
+    aoi = torch.deg2rad(torch.linspace(*FILM_ANGLES, device=dev).double())[None, :]
+    cos_sub = torch.sqrt(1 - (torch.sin(aoi) / FILM_SUBSTRATE) ** 2)
+    return max(float(((r.abs() ** 2 + FILM_SUBSTRATE * cos_sub / torch.cos(aoi) * t.abs() ** 2)
+                      .double() - 1).abs().max()) for r, t in (rt[:2], rt[2:]))
+
+
+def phase_thinfilm(dev):
+    """The thin-film stack in complex64 against complex128 on the card, and its energy balance."""
+    stack32, stack64 = film_stack(torch.float32, dev), film_stack(torch.float64, dev)
+    rt32, rt64 = synced(stack32), synced(stack64)
+    require(all(a.dtype == torch.complex64 and a.shape == (FILM_WVLS[2], FILM_ANGLES[2])
+                and bool(torch.isfinite(a).all()) for a in rt32),
+            'thin film: r, t not finite complex64 (4096, 90) maps')
+    def worst(pairs, f):
+        return max(float((f(a) - f(b)).abs().max()) for a, b in pairs)
+
+    rs, ts = list(zip(rt32[::2], rt64[::2])), list(zip(rt32[1::2], rt64[1::2]))
+    as128 = lambda z: z.to(torch.complex128)  # noqa: E731
+    modulus = lambda z: z.abs().double()  # noqa: E731
+    print(f'  thin film: 32 layers x {FILM_WVLS[2]} wavelengths x {FILM_ANGLES[2]} angles; '
+          f'largest complex |r32 - r64| {worst(rs, as128):.3e}, |t32 - t64| {worst(ts, as128):.3e}')
+    run_checks([
+        ('thin film |r| (s and p) vs complex128 (abs)', worst(rs, modulus), 1e-4),
+        ('thin film |t| (s and p) vs complex128 (abs)', worst(ts, modulus), 1e-4),
+        ('thin film |R + T - 1|, complex128', film_energy_balance(rt64, dev), 1e-4),
+        ('thin film |R + T - 1|, complex64', film_energy_balance(rt32, dev), 1e-4)])
+    return stack32
+
+
+def frequency_radius(n, dx, dtype, dev):
+    """The PSD's radial frequency grid, as Interferogram.psd builds it, in ``dtype``."""
+    from prysm_tpu_torch.fttools import forward_ft_unit
+    u = forward_ft_unit(dx, n, dtype=dtype, device=dev)
+    return torch.hypot(u[None, :], u[:, None]), u
+
+
+def phase_metrology(dev):
+    """The interferometer-analysis path in f32 through its entry point, against f64 on the card."""
+    import tempfile
+    from prysm_tpu_torch import profiling
+    from prysm_tpu_torch.coordinates import uniform_cart_to_polar
+    from prysm_tpu_torch.interferogram import Interferogram, bandlimited_rms
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import (METROLOGY_BAND, METROLOGY_CLIP, build_metrology,
+                                       metrology_measurement)
+
+    t0 = time.perf_counter()
+    measurement = metrology_measurement(N)
+    print(f'  metrology: 13 frames of {N}^2 built on the host in f64 in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    met32 = build_metrology(N, device=dev, measurement=measurement)
+    met64 = build_metrology(N, dtype=torch.float64, device=dev, measurement=measurement)
+    zk.reset_launches()
+    noise.reset_launches()
+    out = synced(met32)
+    no_kernel_launches('metrology')
+    for k, v in out.items():
+        require(v.dtype == torch.float32 and (k == 'map' or bool(torch.isfinite(v).all())),
+                f'metrology {k}: not a finite float32 tensor')
+    ref = synced(met64)
+    ap = met64.aperture
+    nan = float('nan')
+
+    # the f64 map against the true surface, both with piston, tilt, power and piston removed
+    true = Interferogram(torch.as_tensor(measurement[1], device=dev), dx=met64.dx).mask(ap)
+    true.remove_piston().remove_tiptilt().remove_power().remove_piston()
+    s64, s32 = met64.surface(ref['wrapped']), met32.surface(out['wrapped'])
+    pv_map = float(s64.data[ap].max() - s64.data[ap].min())
+    truth_err = float((s64.data - true.data)[ap].abs().max())
+    map_err = float((s32.data.double() - s64.data)[ap].abs().max())
+    print(f'  metrology: f64 map vs the true surface {truth_err:.3e} nm (PV {pv_map:.4f} nm); '
+          f'f32 map vs f64 {map_err:.3e} nm', flush=True)
+    require(truth_err <= 1e-6, f'metrology: the f64 map misses the true surface by {truth_err} nm')
+
+    # spike-clip flips: each within the f32 map's error of the threshold
+    thr64, thr32 = METROLOGY_CLIP * float(s64.std), METROLOGY_CLIP * float(s32.std)
+    flips = (torch.isnan(out['map']) != torch.isnan(ref['map'])) & ap
+    margin = (s64.data.abs() - thr64).abs()[flips]
+    tol = map_err + abs(thr32 - thr64)
+    clipped = int((torch.isnan(ref['map']) & ap).sum())
+    print(f'  metrology: spike_clip({METROLOGY_CLIP}) clips {clipped} of {int(ap.sum())} aperture '
+          f'pixels in f64; {int(flips.sum())} flip in f32, the farthest '
+          f'{float(margin.max()) if margin.numel() else 0.0:.3e} nm from the threshold '
+          f'(allowed {tol:.3e} nm)', flush=True)
+    require(bool((margin <= tol).all()), 'metrology: a spike-clip flip lies beyond f32 rounding')
+
+    # the analysis on the f64 map cast to f32 (the f64 clip), and end to end over it
+    cast = met32.analyze(Interferogram(ref['map'].float(), dx=met32.dx,
+                                       wavelength=met32.wavelength))
+    e2e = met32.analyze(Interferogram(torch.where(torch.isnan(ref['map']), nan, s32.data),
+                                      dx=met32.dx, wavelength=met32.wavelength))
+    # the band-limited RMS with the f64 band (the band edges, 0.1 and 1 cy/mm, fall on
+    # frequency bins, which f32 rounds to either side) and the azimuthal average at the
+    # f64 polar sample points: the f32 PSD's own error
+    r64, u64 = frequency_radius(N, met64.dx, torch.float64, dev)
+    r32, _ = frequency_radius(N, met32.dx, torch.float32, dev)
+    edges = (1 / METROLOGY_BAND[1], 1 / METROLOGY_BAND[0])
+    inside = [(r >= edges[0]) & (r <= edges[1]) for r in (r32, r64)]
+    edge_flips = inside[0] != inside[1]
+    near = (torch.minimum(*((r64[edge_flips] - e).abs() / e for e in edges))
+            if edge_flips.any() else None)
+    print(f'  metrology: band edges flip {int(edge_flips.sum())} PSD bins in f32, each within '
+          f'{float(near.max()) if near is not None else 0.0:.2e} of an edge (relative)', flush=True)
+    require(near is None or bool((near <= 4 * torch.finfo(torch.float32).eps).all()),
+            'metrology: a band-edge flip lies beyond f32 rounding of the edge')
+    blr_f64_band = bandlimited_rms(r64, cast['psd'].double(), *METROLOGY_BAND)
+    az_f64_points = torch.nanmean(uniform_cart_to_polar(u64, u64, cast['psd'].double())[2], dim=0)
+
+    def relerr(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    wrap_err = float(((out['wrapped'].double() - ref['wrapped'] + math.pi) % (2 * math.pi)
+                      - math.pi).abs().max())
+    checks = [('wrapped phase, wrap(f32 - f64) (rad)', wrap_err, 1e-5),
+              ('unwrapped map over the aperture (of PV)', map_err / pv_map,
+               METROLOGY_E2E_BARS['map'])]
+    for k in ('pv', 'rms', 'Sa', 'std', 'strehl', 'pvr'):
+        checks.append((f'cast f64 map: {k} (rel)', relerr(cast[k], ref[k]), 1e-5))
+    checks += [('cast f64 map: PSD (of peak)', relerr(cast['psd'], ref['psd']), 1e-4),
+               ('cast f64 map: band-limited RMS, f64 band (rel)',
+                relerr(blr_f64_band, ref['bandlimited_rms']), 1e-4),
+               ('cast f64 map: azavg at f64 points (of peak)', relerr(az_f64_points, ref['azavg']),
+                1e-4),
+               ('cast f64 map: azavg, f32 points (of peak)', relerr(cast['azavg'], ref['azavg']),
+                METROLOGY_AZAVG_F32_BAR)]
+    for k in ('filtered', 'slope_x', 'slope_y', 'slope'):
+        checks.append((f'cast f64 map: {k} (of peak)', relerr(cast[k], ref[k]), 1e-4))
+    for k, bar in METROLOGY_E2E_BARS.items():
+        if k != 'map':
+            checks.append((f'end to end f32: {k}', relerr(e2e[k], ref[k]), bar))
+    # the Zygo .dat round trip of the f32 map: the NaNs, and within one count
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'map.dat')
+        Interferogram(out['map'], dx=met32.dx, wavelength=met32.wavelength).save_zygo_dat(path)
+        back = Interferogram.from_zygo_dat(path)
+    count_nm = back.meta['wavelength'] * 1e9 / 32768
+    require(back.data.shape == out['map'].shape and back.data.device == out['map'].device
+            and torch.equal(torch.isnan(back.data), torch.isnan(out['map'])),
+            'metrology: the Zygo .dat round trip changed the NaN pattern or the device')
+    fin = torch.isfinite(out['map'])
+    checks.append(('Zygo .dat round trip (counts of 15-bit phase)',
+                   float((back.data.double() - out['map'].double())[fin].abs().max()) / count_nm,
+                   1.001))
+    # fit_psd on the card (f64 azimuthal average) against the same fit on the CPU
+    fit_card = met64.fit_psd(ref)
+    fit_cpu = met64.fit_psd({k: ref[k].cpu() for k in ('azavg_rho', 'azavg')})
+    print(f'  metrology: abc_psd fit a, b, c = {[f"{v:.6g}" for v in fit_card]}', flush=True)
+    checks.append(('fit_psd on the card vs the CPU, f64 (rel)',
+                   float(max(abs(fit_card / fit_cpu - 1))), 1e-6))
+    run_checks(checks, width=60)
+
+    timing = profiling.time_fn(met32, iters=3, warmup=1)
+    stats = profiling.device_memory_stats(dev)
+    require(bool(stats), 'profiling.device_memory_stats gave nothing on the card')
+    peak_mb = stats.get('allocated_bytes.all.peak', 0) / 1e6
+    print(f'  profiling.time_fn(metrology): {timing!r}; device_memory_stats: {len(stats)} keys, '
+          f'allocated.all.peak {peak_mb:.1f} MB', flush=True)
+    return met32, ref
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
@@ -1063,7 +1275,7 @@ def device_breakdown(fn, steps=10, top=5, tries=3):
         (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
 
 
-def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6):
+def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, metrology, film):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
@@ -1091,6 +1303,8 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6):
     calls['cfg6_trace_ms'] = trace6
     calls['cfg6_trace_hex256_ms'] = trace256
     calls['cfg6_grad_ms'] = grad6
+    met32, ref64 = metrology
+    calls['metrology_ms'] = met32
     timing = step_ms(calls)
     for k, v in timing.items():
         print(f'{smi} | {k} {v:.4f}', flush=True)
@@ -1116,7 +1330,8 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6):
                                    ('image_chain', 'image_chain_ms', 'call', 10),
                                    ('cfg6_trace', 'cfg6_trace_ms', 'call', 10),
                                    ('cfg6_trace_hex256', 'cfg6_trace_hex256_ms', 'call', 5),
-                                   ('cfg6_grad', 'cfg6_grad_ms', 'step', 5)):
+                                   ('cfg6_grad', 'cfg6_grad_ms', 'step', 5),
+                                   ('metrology', 'metrology_ms', 'call', 5)):
         wall = timing[key]
         breakdown = device_breakdown(calls[key], steps=steps)
         zk.reset_launches()
@@ -1142,6 +1357,20 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6):
         host.append((time.perf_counter() - t0) * 1e3)
     print(f'{smi} | cfg6_host_launch_ms {statistics.median(host):.4f} (host wall, '
           f'{trace6.P.shape[0]} rays)', flush=True)
+
+    # the metrology path's host-bound PSD fit (500 Adam steps on the card, f64) and the
+    # thin-film stack (f32, s and p), on the host's clock
+    t0 = time.perf_counter()
+    met32.fit_psd(ref64)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    film_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        synced(film)
+        film_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f'{smi} | metrology_fit_psd_ms {fit_ms:.4f} (host wall, 500 steps); '
+          f'thinfilm_stack_ms {statistics.median(film_ms):.4f} (host wall, 32 layers, '
+          f'{FILM_WVLS[2]} x {FILM_ANGLES[2]}, s and p)', flush=True)
 
     # the cfg2 MDFT alone: does cuBLAS take TF32 for complex64?
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1342,9 +1571,15 @@ def main():
           f'and curvature gradient) {stamp()}', flush=True)
     trace6, grad6 = phase_cfg6(dev)
     torch.cuda.synchronize()
+    print(f'phase 3i: metrology (13-frame PSI of a 100 mm flat at {N}^2, unwrap, Interferogram '
+          f'analysis; a 32-layer thin-film stack) {stamp()}', flush=True)
+    metrology = phase_metrology(dev)
+    film = phase_thinfilm(dev)
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
-    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6)
+    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
+                           metrology, film)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

@@ -18,7 +18,8 @@ from .steps import Pupil
 
 __all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_numpy',
            'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
-           'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy']
+           'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy',
+           'interferogram_from_numpy', 'scheme_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -196,3 +197,26 @@ def surfaces_from_numpy(rows, device=None, dtype=None):
             surf.pose_like(torch.empty(0, dtype=dtype, device=dev))
             out.append(surf)
     return out
+
+
+def interferogram_from_numpy(phase, dx, wavelength, intensity=None, meta=None, latcaled=None,
+                             device=None):
+    """An ``interferogram.Interferogram`` from a JAX Interferogram's state as numpy.
+
+    ``phase`` keeps its dtype and goes to ``device`` (default
+    ``config.device``); ``intensity`` and ``meta`` are kept as given, as the
+    JAX package keeps them; ``latcaled`` is its ``_latcaled`` flag (by
+    default the constructor's ``dx != 0``).
+    """
+    from .interferogram import Interferogram
+    ifg = Interferogram(_tensor(phase, resolve_device(device)), dx=float(dx),
+                        wavelength=wavelength, intensity=intensity, meta=meta)
+    if latcaled is not None:
+        ifg._latcaled = bool(latcaled)
+    return ifg
+
+
+def scheme_from_numpy(shifts, s, c):
+    """An ``x.psi.Scheme`` from a JAX scheme's shifts, sine and cosine weights."""
+    from .x.psi import Scheme
+    return Scheme(np.asarray(shifts), np.asarray(s), np.asarray(c))

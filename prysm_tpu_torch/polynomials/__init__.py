@@ -1,8 +1,7 @@
 """Polynomial families: Jacobi, Zernike, Chebyshev, Legendre, Hermite,
 Laguerre, Dickson, Q (Forbes), XY, and the fitting and mode-sum machinery.
 
-Counterpart of ``prysm_tpu/polynomials/__init__.py``: the same names, but
-for the Zernike barplots, which wait for ``plotting``.
+Counterpart of ``prysm_tpu/polynomials/__init__.py``: the same names.
 """
 from .jacobi import (  # NOQA
     jacobi, jacobi_der, jacobi_seq, jacobi_der_seq,
@@ -16,7 +15,11 @@ from .zernike import (  # NOQA
     zernike_nm_der_xy, zernike_nm_der_xy_seq, zernike_sum_der_xy,
     nm_to_fringe, nm_to_ansi_j, ansi_j_to_nm, noll_to_nm, fringe_to_nm,
     nm_to_name, top_n, zernikes_to_magnitude_angle,
-    zernikes_to_magnitude_angle_nmkey, zero_separation,
+    zernikes_to_magnitude_angle_nmkey, zero_separation, barplot, barplot_magnitudes,
+)
+from .zernike import (  # NOQA
+    barplot as zernike_barplot,
+    barplot_magnitudes as zernike_barplot_magnitudes,
 )
 from .zernike import zero_separation as zernike_zero_separation  # NOQA
 from .fitting import (  # NOQA

@@ -1,7 +1,7 @@
 """Zernike polynomials.
 
-Counterpart of ``prysm_tpu/polynomials/zernike.py``, without the
-barplots (they need ``plotting``, not ported yet).
+Counterpart of ``prysm_tpu/polynomials/zernike.py``; the barplots are
+host-side and import matplotlib (through ``plotting``) when called.
 Z_n^m = P_{(n-|m|)/2}^{(0, |m|)}(2r^2 - 1) * r^|m| * trig(|m| t); the
 sequence evaluators run one Jacobi chain per unique |m| and share r^|m|
 and the trig factors across modes of the same |m|.
@@ -24,7 +24,8 @@ __all__ = ['zernike_norm', 'zero_separation', 'zernike_nm', 'zernike_nm_seq', 'z
            'zernike_nm_der', 'zernike_nm_der_seq', 'zernike_nm_der_xy',
            'zernike_nm_der_xy_seq', 'zernike_sum_der_xy', 'nm_to_fringe', 'nm_to_ansi_j',
            'ansi_j_to_nm', 'noll_to_nm', 'fringe_to_nm', 'zernikes_to_magnitude_angle_nmkey',
-           'zernikes_to_magnitude_angle', 'nm_to_name', 'top_n']
+           'zernikes_to_magnitude_angle', 'nm_to_name', 'top_n', 'barplot',
+           'barplot_magnitudes']
 
 
 def zernike_norm(n, m):
@@ -444,3 +445,73 @@ def top_n(coefs, n=5):
     idxs = idxs[np.argsort(coefs_work[idxs])[::-1]]
     names = np.asarray([nm_to_name(*p) for p in oidxs])[idxs]
     return list(zip(coefsv[idxs], idxs, names))
+
+
+def barplot(coefs, names=None, orientation='h', buffer=1, zorder=3,
+            number=True, offset=0, width=0.8, fig=None, ax=None):
+    """Bar plot of Zernike coefficients with names and index labels."""
+    from ..plotting import share_fig_ax
+    fig, ax = share_fig_ax(fig, ax)
+    if torch.is_tensor(coefs):
+        coefs = coefs.detach().cpu()
+    coefs = np.asarray(coefs, dtype=float)
+    idxs = np.arange(len(coefs))
+    lims = (idxs[0] - buffer, idxs[-1] + buffer)
+    if names is None:
+        names = [str(i) for i in idxs]
+    horizontal = orientation.lower() in ('h', 'horizontal')
+    if horizontal:
+        ax.bar(idxs + offset, coefs, zorder=zorder, width=width)
+        ax.set_xticks(idxs, names, rotation=90)
+        if number:
+            dy = 0.01 * (coefs.max() - coefs.min())
+            for i in idxs:
+                ax.text(i, dy, str(i), ha='center')
+        ax.set(xlim=lims)
+    else:
+        ax.barh(idxs + offset, coefs, zorder=zorder, height=width)
+        ax.set_yticks(idxs, names)
+        if number:
+            for i in idxs:
+                ax.text(0, i, str(i), ha='center')
+        ax.set(ylim=lims)
+    return fig, ax
+
+
+def barplot_magnitudes(coefs, nms, errorbars=None, orientation='h',
+                       sort=False, buffer=1, zorder=3, offset=0, width=0.8,
+                       fig=None, ax=None):
+    """Bar plot of Zernike magnitude pairs (one bar per astigmatism etc.)."""
+    from ..plotting import share_fig_ax
+    pak = zernikes_to_magnitude_angle(
+        [(*nm, v) for nm, v in zip(nms, coefs)])
+    mags = np.asarray([abs(v[0]) for v in pak.values()], dtype=float)
+    names = np.asarray(list(pak.keys()), dtype=object)
+    if errorbars is not None:
+        epak = zernikes_to_magnitude_angle(
+            [(*nm, v) for nm, v in zip(nms, errorbars)])
+        errorbars = np.asarray([abs(v[0]) for v in epak.values()],
+                                dtype=float)
+    if sort:
+        order = np.argsort(mags)
+        mags = mags[order]
+        names = names[order]
+        if errorbars is not None:
+            errorbars = errorbars[order]
+    idxs = np.arange(len(names))
+    lims = (idxs[0] - buffer, idxs[-1] + buffer)
+    fig, ax = share_fig_ax(fig, ax)
+    if orientation.lower() in ('h', 'horizontal'):
+        ax.bar(idxs + offset, mags, zorder=zorder, width=width)
+        if errorbars is not None:
+            ax.errorbar(idxs + offset, mags, errorbars, fmt='o')
+        ax.set_xticks(idxs, names, rotation=90)
+        ax.set(xlim=lims)
+    else:
+        ax.barh(idxs + offset, mags, zorder=zorder, height=width)
+        if errorbars is not None:
+            ax.errorbar(mags, idxs + offset, xerr=errorbars, fmt='.',
+                        color='r', zorder=zorder + 1, capsize=5)
+        ax.set_yticks(idxs, names)
+        ax.set(ylim=lims)
+    return fig, ax

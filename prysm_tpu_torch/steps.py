@@ -33,7 +33,11 @@ Counterparts, without any timing harness, of
 * ``bench.py`` cfg6: a cemented doublet and a rear singlet (three
   spheres, two model glasses), 3 fields and a hexapolar pupil traced as
   one merged ray bundle, and the gradient of the image-plane RMS spot
-  radius with respect to the three curvatures.
+  radius with respect to the three curvatures;
+* the interferometer-analysis path: 13-frame phase-shifting
+  interferometry of a 100 mm flat on a 1024^2 camera, unwrapped, masked,
+  with piston, tilt and power removed and spikes clipped, then its
+  statistics, PSD, band-limited RMS, azimuthal average, lowpass and slopes.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -45,7 +49,8 @@ demosaicked frame; ``build_freeform_fit`` one that returns the sag, the
 fit and the sag families; ``build_image_chain`` one that returns the two
 blurred images; ``build_cfg6_trace`` one that returns the
 ``RayTraceResult`` of the merged bundle, ``build_cfg6_grad`` one that
-returns the spot loss and its curvature gradient.
+returns the spot loss and its curvature gradient, ``build_metrology`` one
+that returns the analysis's results.
 """
 from dataclasses import dataclass
 
@@ -79,7 +84,10 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'build_cfg5_frame', 'FREEFORM_Q2D_NMS', 'FREEFORM_FIT_NMS', 'FREEFORM_FAMILIES',
            'freeform_coefficients', 'build_freeform_fit', 'build_image_chain',
            'CFG6_CURVATURES', 'CFG6_THICKNESSES', 'CFG6_GLASSES', 'CFG6_FIELDS', 'CFG6_EPD',
-           'CFG6_STOP', 'CFG6_RINGS', 'cfg6_system', 'build_cfg6_trace', 'build_cfg6_grad']
+           'CFG6_STOP', 'CFG6_RINGS', 'cfg6_system', 'build_cfg6_trace', 'build_cfg6_grad',
+           'METROLOGY_DIAMETER', 'METROLOGY_SEED', 'METROLOGY_PSD', 'METROLOGY_PSD_RMS',
+           'METROLOGY_ZERNIKES', 'METROLOGY_TILT_WAVES', 'METROLOGY_CLIP', 'METROLOGY_BAND',
+           'METROLOGY_LOWPASS', 'metrology_measurement', 'build_metrology']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -661,3 +669,152 @@ def build_cfg6_grad(sampling=None, dtype=None, device=None):
     ``step(curvatures=None)`` giving (loss, gradient, per-field radii).
     """
     return _Cfg6Grad(sampling, dtype=dtype, device=device)
+
+
+# the interferometer-analysis path: a 100 mm flat on an N^2 camera, HeNe, double
+# pass; the surface's mid-spatial part (abc_psd a, b, c, and its RMS in nm), its
+# Fringe Zernikes Z4-Z9 in nm, and its x tilt in waves of the double-pass wavefront
+METROLOGY_DIAMETER, METROLOGY_SEED = 100.0, 8
+METROLOGY_PSD, METROLOGY_PSD_RMS = (1e3, 0.1, 2.5), 5.0
+METROLOGY_ZERNIKES = (((2, 0), 50.0), ((2, 2), 20.0), ((2, -2), -15.0),
+                      ((3, 1), 10.0), ((3, -1), -8.0), ((4, 0), 5.0))
+METROLOGY_TILT_WAVES = 2.0
+# the analysis: spike clip (sigma), the band of the band-limited RMS (periods,
+# mm) and the lowpass cutoff (cy/mm)
+METROLOGY_CLIP, METROLOGY_BAND, METROLOGY_LOWPASS = 3, (1.0, 10.0), 0.1
+
+
+def _fringe_z4_z9(rho, theta):
+    """The unnormalized Fringe Zernikes Z4-Z9 of METROLOGY_ZERNIKES, in its order (numpy)."""
+    radial3 = 3 * rho ** 3 - 2 * rho
+    return (2 * rho ** 2 - 1, rho ** 2 * np.cos(2 * theta), rho ** 2 * np.sin(2 * theta),
+            radial3 * np.cos(theta), radial3 * np.sin(theta), 6 * rho ** 4 - 6 * rho ** 2 + 1)
+
+
+def metrology_measurement(N=1024, seed=METROLOGY_SEED):
+    """The phase-shifting measurement of the metrology path, built on the host in float64.
+
+    Returns (frames, surface, dx): the 13 full-field frames
+    1 + 0.8 cos(phi + delta_k) of ``ZYGO_THIRTEEN_FRAME``, shape (13, N, N),
+    with phi = 4 pi h / lambda (double pass, HeNe), the surface h in nm
+    (N, N), and the pixel pitch in mm.  h is a mid-spatial part drawn from
+    ``np.random.default_rng(seed)`` under the abc PSD and scaled to
+    ``METROLOGY_PSD_RMS`` nm RMS over the frame, the Fringe Zernikes of
+    ``METROLOGY_ZERNIKES`` over the 100 mm aperture, and x tilt.
+    """
+    from .fttools import _host_fftrange
+    from .wavelengths import HeNe
+    from .x.psi import ZYGO_THIRTEEN_FRAME
+    dx = METROLOGY_DIAMETER / N
+    axis = _host_fftrange(N) * dx
+    x, y = np.meshgrid(axis, axis)
+    # mid-spatial part: random phase (the angle of the FFT of uniform draws)
+    # under the square root of the PSD
+    nu = np.fft.fftshift(np.fft.fftfreq(N, dx))
+    a, b, c = METROLOGY_PSD
+    psd = a / (1 + (np.hypot(*np.meshgrid(nu, nu)) / b) ** c)
+    phase = np.angle(np.fft.fft2(np.random.default_rng(seed).uniform(size=(N, N))))
+    mid = np.fft.ifft2(np.fft.ifftshift(np.exp(1j * phase) * np.sqrt(psd))).real
+    mid = mid - mid.mean()
+    mid = mid * (METROLOGY_PSD_RMS / np.sqrt(np.mean(mid * mid)))
+    rho, theta = np.hypot(x, y) / (METROLOGY_DIAMETER / 2), np.arctan2(y, x)
+    zern = sum(c * z for (_, c), z in zip(METROLOGY_ZERNIKES, _fringe_z4_z9(rho, theta)))
+    wvl_nm = HeNe * 1e3
+    tilt = METROLOGY_TILT_WAVES * wvl_nm / 2 * x / METROLOGY_DIAMETER
+    h = mid + zern + tilt
+    phi = 4 * np.pi * h / wvl_nm
+    frames = 1 + 0.8 * np.cos(phi[None] + np.asarray(ZYGO_THIRTEEN_FRAME.shifts)[:, None, None])
+    return frames, h, dx
+
+
+class _Metrology:
+    """The interferometer-analysis path; calling it gives a dict of its results.
+
+    Planned once: the frames, cast from the float64 host measurement to the
+    path's dtype on its device, and the circular aperture (r <= 50 mm).
+    The stages are methods, so that a check can feed one stage another
+    precision's result: ``wrapped`` (de Groot), ``surface`` (unwrap to nm,
+    mask, piston/tilt/power removed), then ``spike_clip`` on the
+    Interferogram, and ``analyze``.
+    """
+
+    def __init__(self, N, dtype=None, device=None, measurement=None):
+        from .wavelengths import HeNe
+        dtype = config.precision if dtype is None else dtype
+        dev = resolve_device(device)
+        frames, self.truth, self.dx = (metrology_measurement(N) if measurement is None
+                                       else measurement)
+        self.wavelength = HeNe
+        self.frames = torch.as_tensor(frames, dtype=dtype, device=dev)
+        x, y = make_xy_grid(N, dx=self.dx, dtype=dtype, device=dev)
+        self.aperture = torch.hypot(x, y) <= METROLOGY_DIAMETER / 2
+
+    def wrapped(self):
+        """The wrapped phase of the 13 frames (rad)."""
+        from .x.psi import ZYGO_THIRTEEN_FRAME, degroot_formalism_psi
+        return degroot_formalism_psi(self.frames, ZYGO_THIRTEEN_FRAME)
+
+    def surface(self, wrapped):
+        """The unwrapped surface in nm as an Interferogram: masked, piston, tilt and power removed.
+
+        ``remove_power`` subtracts only the quadratic term of its fit, so the
+        piston is removed once more after it: a map left with the power
+        fit's constant offset fails ``spike_clip``'s |z| > n sigma test over
+        most of the aperture.
+        """
+        from .interferogram import Interferogram
+        from .x.psi import unwrap_phase
+        nm = unwrap_phase(wrapped) * (self.wavelength * 1e3 / (4 * np.pi))
+        ifg = Interferogram(nm, dx=self.dx, wavelength=self.wavelength)
+        ifg.mask(self.aperture).remove_piston().remove_tiptilt().remove_power()
+        return ifg.remove_piston()
+
+    def analyze(self, ifg):
+        """The statistics, PSD, band-limited RMS, azimuthal average, filtered map and slopes.
+
+        ``ifg`` is the clipped map; it is filled, filtered and left so.
+        """
+        from .interferogram import bandlimited_rms
+        out = {'pv': ifg.pv, 'rms': ifg.rms, 'Sa': ifg.Sa, 'std': ifg.std,
+               'strehl': ifg.strehl, 'pvr': ifg.pvr()}
+        p = ifg.fill(0).psd()
+        out['psd'] = p.data
+        out['bandlimited_rms'] = bandlimited_rms(p.r, p.data, wllow=METROLOGY_BAND[0],
+                                                 wlhigh=METROLOGY_BAND[1])
+        out['azavg_rho'], out['azavg'] = p.slices().azavg
+        out['filtered'] = ifg.filter(METROLOGY_LOWPASS, 'lowpass').data
+        out['slope_x'], out['slope_y'], out['slope'] = (s.data for s in ifg.slope())
+        return out
+
+    def __call__(self):
+        """{'wrapped', 'map' (clipped, nm), the statistics, 'psd', ..., 'slope'}."""
+        wrapped = self.wrapped()
+        ifg = self.surface(wrapped).spike_clip(METROLOGY_CLIP)
+        return {'wrapped': wrapped, 'map': ifg.data, **self.analyze(ifg)}
+
+    @staticmethod
+    def fit_psd(out):
+        """abc_psd fitted to the azimuthal average over its bins with f > 0 and a positive value.
+
+        A host-bound loop of 500 steps (``interferogram.fit_psd``); returns numpy.
+        """
+        from .interferogram import abc_psd, fit_psd
+        rho, az = out['azavg_rho'], out['azavg']
+        keep = (rho > 0) & torch.isfinite(az) & (az > 0)
+        return fit_psd(rho[keep], az[keep], abc_psd)
+
+
+def build_metrology(N=1024, dtype=None, device=None, measurement=None):
+    """The interferometer-analysis path on an N^2 camera.
+
+    A 100 mm flat measured by 13-frame phase-shifting interferometry
+    (``metrology_measurement``, or the (frames, surface, dx) given):
+    de Groot's wrapped phase -> DCT least-squares unwrap -> nm ->
+    ``Interferogram`` -> the 50 mm-radius aperture -> piston, tilt, power and
+    piston again removed -> ``spike_clip(3)``; PV, RMS, Sa, std, Strehl and PVr; the map
+    filled with 0 -> PSD -> band-limited RMS over 1-10 mm periods and the
+    PSD's azimuthal average; the map lowpassed at 0.1 cy/mm -> its slopes.
+    Returns a callable ``metrology()`` giving a dict of tensors; its
+    ``fit_psd(out)`` fits ``abc_psd`` to the azimuthal average.
+    """
+    return _Metrology(N, dtype=dtype, device=device, measurement=measurement)

@@ -60,12 +60,19 @@ SLICE7_MODULES = ('x', 'x.materials', 'x.materials.formulas', 'x.materials.core'
                       '_namespaces', 'system', 'batch'))
 
 
+# the rest of the optics core and phase-shifting interferometry: the
+# interferometer-analysis slice
+SLICE8_MODULES = ('util', 'wavelengths', 'refractive', 'plotting', '_richdata', 'io',
+                  'interferogram', 'thinlens', 'thinfilm', 'profiling', 'sample_data', 'x.psi')
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
 
 
-@pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES)
+@pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
+                         + SLICE8_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
