@@ -89,7 +89,30 @@ Phases, each of which raises on a failed check:
       ``device_memory_stats``; and a 32-layer thin-film stack over 4096
       wavelengths x 90 angles in complex64 against complex128, with its
       energy balance;
-   the paths of c-e and g-i run no hand-written kernel: their launch
+   j. the coating designer's path (``steps.build_coating_design``: a
+      41-layer (HL)^20 H edge filter, 5% seeded thickness errors, R = 1 /
+      T = 1 over 1024 wavelengths x 2 angles, s and p) in f32 and f64 on
+      the card: at the start the merit, its thickness gradient and
+      ``index_gradient``, f32 against f64; the f64 thickness gradient
+      against central differences and ``needle_function`` at five depths
+      against the merit's difference when a needle is inserted; ``refine``
+      by ``PrysmLBFGSB`` (100 iterations) in f64 against the same run on
+      the CPU (a worker process started at the top of the script: the
+      first 10 iterates and the final merit) and in f32, R + T = 1 on the
+      refined stacks and the merit lowered in both; ``refine`` by damped
+      least squares (10 iterations); ``PrysmLBFGSB`` against the SciPy
+      driver ``LBFGSB`` on a bound-active box, iterate for iterate; and
+      ``synthesize`` of a broadband AR (256 wavelengths x 3 angles, 240
+      depths, up to 24 layers, 12 rounds) in f64 against the CPU's: the
+      same layer count and the merit close. Every iterate stays on the card;
+   k. phase retrieval driven by optym (``steps.build_phase_retrieval_lbfgsb``:
+      cfg2's 1024^2 pupil, TF32 MDFT to 256^2 and intensity L2 loss,
+      ``PrysmLBFGSB`` from 0.8 x the truth in a +-60 box for 40
+      iterations): the coefficients against the truth, and each objective
+      evaluation launching exactly one Zernike forward and one coefficient
+      backward kernel; beside it, the same retrieval with float32 MDFT
+      products, its error printed;
+   the paths of c-e, g-j run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
@@ -111,7 +134,12 @@ Phases, each of which raises on a failed check:
    and families, in a second round of turns), each with its device time,
    busy share, device kernels and hand-written kernel launches per call
    and longest device operations; cfg6's host launch, the metrology PSD
-   fit and the thin-film stack on their own lines;
+   fit and the thin-film stack on their own lines; the coating merit's
+   objective evaluation in f32 and f64 (wall, device ms, busy share,
+   device kernels), a ``PrysmLBFGSB`` iteration with its evaluations and
+   host synchronisations (counted under ``torch.cuda.set_sync_debug_mode``),
+   the two refinements' and the synthesis's wall times, and the phase
+   retrieval's ms per iteration and per evaluation with its launches;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -196,6 +224,26 @@ METROLOGY_E2E_BARS = {'map': 2e-2, 'pv': 3e-2, 'rms': 5e-3, 'Sa': 6e-3, 'std': 5
 # points are off by up to 0.025 px (the grid step is a difference of two
 # float32 frequencies near +-N/2 du); the JAX package's is 2.9e-2 of the peak
 METROLOGY_AZAVG_F32_BAR = 6e-2
+# phase 3j's float32 bars: twice the JAX package's own float32 errors on the
+# same design at its full size on the CPU (probes/coating_cpu_probe.py): the
+# merit at the start (relative; JAX 1.28e-6), its thickness and index
+# gradients (of their peaks; 1.95e-5, 1.78e-5) and |R + T - 1| over the
+# merit's grids (1.28e-6), rounded up
+COATING_F32_BARS = {'merit': 2.6e-6, 'thickness_gradient': 3.9e-5, 'index_gradient': 3.6e-5,
+                    'energy': 2.6e-6}
+COATING_BAR_SOURCE = '2x the JAX package f32, probes/coating_cpu_probe.py'
+# the L-BFGS-B refinement's length, its iterates compared with the CPU's, and the
+# head-to-head with the SciPy driver: a box of +-2% about the quarter-wave
+# thicknesses, which the perturbed start leaves 28 of 41 layers outside
+COATING_LBFGSB_ITERS, COATING_LM_ITERS, COATING_COMPARED, HEAD_TO_HEAD_ITERS = 100, 10, 10, 15
+HEAD_TO_HEAD_BOX = 0.02
+# phase 3k's bar: twice the JAX package's own float32 error on the same
+# retrieval at 1024^2 -> 256^2 on the CPU with the MDFT's products taking TF32
+# operands, as the card's TF32 plan does (probes/coating_cpu_probe.py: 4.20e-5;
+# with float32 products 1.91e-6, one float32 ulp of the largest coefficient; the
+# port's float64 run 3.6e-15)
+RETRIEVAL_TF32_BAR = 8.4e-5
+RETRIEVAL_JAX_F32 = 1.91e-6
 # the thin-film check: (HL)^16 quarter-wave at 0.55 um on glass, 4096
 # wavelengths x 90 angles, s and p
 FILM_INDICES, FILM_SUBSTRATE, FILM_WVL0 = (2.35, 1.46) * 16, 1.52, 0.55
@@ -1179,6 +1227,307 @@ def phase_metrology(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 3j-3k: the coating designer's path and the optym phase retrieval
+# ---------------------------------------------------------------------------
+
+def coating_cpu_reference():
+    """The f64 coating design on the host's CPU, run in a worker process: the
+    L-BFGS-B refinement's first iterates and final merit, and the synthesis."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    from prysm_tpu_torch.steps import build_coating_design
+    from prysm_tpu_torch.x.optym.problem import to_host
+    design = build_coating_design(dtype=torch.float64, device='cpu')
+    t0 = time.perf_counter()
+    res = design.refine('lbfgsb', COATING_LBFGSB_ITERS)
+    refine_s = time.perf_counter() - t0
+    syn = design.synthesize()
+    return {'iterates': [to_host(r.x_next) for r in res.optimizer_result.records],
+            'merits': [r.metadata['f_next'] for r in res.optimizer_result.records],
+            'merit': res.merit, 'nit': res.nit, 'needle_layers': syn.n_layers,
+            'needle_merit': syn.merit, 'refine_s': refine_s,
+            'seconds': time.perf_counter() - t0}
+
+
+def on_card(x, dev, dtype, what):
+    require(torch.is_tensor(x) and x.device == dev and x.dtype == dtype,
+            f'{what} left the card or its dtype: '
+            f'{getattr(x, "device", type(x))} {getattr(x, "dtype", "")}')
+
+
+def energy_balance(design, stack):
+    """max |R + T - 1| over the design's merit grids, s and p (a lossless stack)."""
+    from prysm_tpu_torch.x.coatings import RTA
+    worst = 0.0
+    with design.configured():
+        for term in design.merit:
+            for pol in 'sp':
+                R, T, _ = RTA(stack, term.wvl, term.theta, pol)
+                worst = max(worst, float((R.double() + T.double() - 1).abs().max()))
+    return worst
+
+
+def phase_coating(dev, cpu_ref):
+    """The coating design in f32 and f64 on the card; returns what phase 4 times."""
+    from prysm_tpu_torch.steps import COATING_WVL0, NEEDLE_MATERIALS, build_coating_design
+    from prysm_tpu_torch.x.coatings import insert_needle, needle_function
+    from prysm_tpu_torch.x.optym import LBFGSB, PrysmLBFGSB
+
+    f32, f64 = torch.float32, torch.float64
+    designs = {dt: build_coating_design(dtype=dt, device=dev) for dt in (f32, f64)}
+    start = {}
+    for dt, d in designs.items():
+        value, grad = d.problem().fg(d.problem().x0())
+        _, index_grad = d.problem(variables='index').fg(d.problem(variables='index').x0())
+        for x, what in ((grad, 'thickness gradient'), (index_grad, 'index gradient')):
+            on_card(x, dev, dt, what)
+            require(bool(torch.isfinite(x).all()), f'the {what} is not finite')
+        start[dt] = (value, grad, index_grad)
+    (v32, g32, n32), (v64, g64, n64) = start[f32], start[f64]
+    print(f'  coating: {len(designs[f64].stack0)} layers; merit at the start {v64:.6f} (f64), '
+          f'{v32:.6f} (f32)', flush=True)
+    src = COATING_BAR_SOURCE
+    checks = [(f'merit at the start, f32 vs f64 (rel; {src})', abs(v32 - v64) / abs(v64),
+               COATING_F32_BARS['merit']),
+              (f'thickness gradient, f32 vs f64 (of peak; {src})', rel(g32, g64),
+               COATING_F32_BARS['thickness_gradient']),
+              (f'index_gradient, f32 vs f64 (of peak; {src})', rel(n32, n64),
+               COATING_F32_BARS['index_gradient'])]
+
+    d64 = designs[f64]
+    with d64.configured():
+        # the f64 thickness gradient against central differences of the merit
+        p64 = d64.problem()
+        x0, h = p64.x0(), 1e-6
+        merit = p64.merit.value
+        fd = torch.tensor([(merit(p64.stack_from_x(x0 + h * e)) - merit(p64.stack_from_x(x0 - h * e)))
+                           / (2 * h) for e in torch.eye(x0.numel(), dtype=f64, device=dev)],
+                          dtype=f64, device=dev)
+        checks.append(('thickness gradient f64 vs central difference, h = 1e-6 um (of peak; '
+                       'new: the truncation, h^2 f\'\'\'/6, is 1.6e-7 on the CPU)', rel(g64, fd),
+                       1e-6))
+        # needle_function at five depths against the merit's forward difference
+        # when a 1e-7 um needle of the low-index material is inserted there
+        stack = d64.stack0
+        depth = float(stack.thicknesses.sum())
+        z = depth * torch.tensor([0.1, 0.3, 0.5, 0.7, 0.9], dtype=f64)
+        P = needle_function(stack, d64.merit, NEEDLE_MATERIALS[0], z.numpy())
+        on_card(P, dev, f64, 'needle_function')
+        base, dn = p64.merit.value(stack), 1e-7
+        fd_needle = torch.tensor([(p64.merit.value(insert_needle(stack, float(zk),
+                                                                 NEEDLE_MATERIALS[0], dn))
+                                   - base) / dn for zk in z])
+        needle_err = float(((P.cpu() - fd_needle).abs() / fd_needle.abs().clamp(min=1e-6)).max())
+        print(f'  needle_function at {[round(float(v), 4) for v in z]} um: '
+              f'{[float(f"{v:.6g}") for v in P.cpu()]}', flush=True)
+        checks.append(('needle_function f64 vs difference of an inserted needle (rel; '
+                       'tests/test_coatings_depth.py:399)', needle_err, 3e-3))
+    run_checks(checks, width=96)
+
+    # the refinements, each with its wall time
+    walls, refined = {}, {}
+    for dt, d in designs.items():
+        t0 = time.perf_counter()
+        res = synced(lambda: d.refine('lbfgsb', COATING_LBFGSB_ITERS))
+        walls[f'refine_lbfgsb_{str(dt)[6:]}'] = time.perf_counter() - t0
+        on_card(res.x, dev, dt, f'the {dt} L-BFGS-B iterate')
+        for r in res.optimizer_result.records:
+            on_card(r.x_next, dev, dt, f'the {dt} L-BFGS-B iterate {r.iteration}')
+        refined[dt] = res
+    t0 = time.perf_counter()
+    lm = d64.refine('lm', COATING_LM_ITERS)
+    walls['refine_lm_float64'] = time.perf_counter() - t0
+    evals = lm.optimizer_result.nfev
+    print(f'  refine lbfgsb: merit {refined[f64].merit:.6g} (f64, {refined[f64].nit} iterations, '
+          f'{walls["refine_lbfgsb_float64"]:.2f} s), {refined[f32].merit:.6g} (f32, '
+          f'{refined[f32].nit} iterations, {walls["refine_lbfgsb_float32"]:.2f} s); refine lm: '
+          f'merit {lm.merit:.6g} (f64, {lm.nit} iterations, {evals} residual evaluations, '
+          f'{walls["refine_lm_float64"]:.2f} s)', flush=True)
+
+    # PrysmLBFGSB against the SciPy driver on a bound-active box, iterate for iterate
+    with d64.configured():
+        p64 = d64.problem()
+        x0 = p64.x0()
+        quarter = COATING_WVL0 / (4 * torch.tensor(d64.stack0.indices, dtype=f64, device=dev))
+        lo, hi = (1 - HEAD_TO_HEAD_BOX) * quarter, (1 + HEAD_TO_HEAD_BOX) * quarter
+        active = int(((x0 <= lo) | (x0 >= hi)).sum())
+        prysm, scipy = PrysmLBFGSB(p64.fg, x0, lower_bounds=lo, upper_bounds=hi), \
+            LBFGSB(p64.fg, x0, lower_bounds=lo, upper_bounds=hi)
+        steps_x, steps_f = [], []
+        for _ in range(HEAD_TO_HEAD_ITERS):
+            try:
+                prysm.step()
+                scipy.step()
+            except StopIteration:
+                break
+            on_card(prysm.x, dev, f64, 'the PrysmLBFGSB iterate')
+            steps_x.append(float((prysm.x.cpu() - torch.from_numpy(scipy.x)).abs().max()))
+            f_p, f_s = prysm.last_step_metadata['f_next'], float(scipy._f)
+            steps_f.append(abs(f_p - f_s) / abs(f_s))
+    print(f'  PrysmLBFGSB vs LBFGSB (SciPy): {active} of {x0.numel()} layers outside the box at '
+          f'the start; {len(steps_x)} iterations; |x - x_scipy| per iterate '
+          f'{[float(f"{v:.2e}") for v in steps_x]}', flush=True)
+    require(len(steps_x) >= 5, 'the head-to-head stopped before 5 iterations')
+
+    t0 = time.perf_counter()
+    syn64 = d64.synthesize()
+    walls['synthesize_float64'] = time.perf_counter() - t0
+    with d64.configured():
+        needle0 = d64.needle_merit[0].value(d64.needle_start)
+    print(f'  synthesize: {syn64.n_layers} layers, merit {syn64.merit:.6g} from {needle0:.6g}, '
+          f'{syn64.iterations} rounds (f64, {walls["synthesize_float64"]:.2f} s)', flush=True)
+
+    t0 = time.perf_counter()
+    cpu = cpu_ref.get(timeout=600)
+    print(f'  CPU reference (worker process): waited {time.perf_counter() - t0:.1f} s; its refine '
+          f'{cpu["refine_s"]:.1f} s, all {cpu["seconds"]:.1f} s; synthesis {cpu["needle_layers"]} '
+          f'layers, merit {cpu["needle_merit"]:.6g}', flush=True)
+    card_records = refined[f64].optimizer_result.records
+    parted = [float(abs(a.x_next.cpu().numpy() - b).max() / abs(b).max())
+              for a, b in zip(card_records, cpu['iterates'])]
+    merits = [(a.metadata['f_next'], b) for a, b in zip(card_records, cpu['merits'])]
+    print('  refine lbfgsb f64, card vs CPU, |x - x_cpu| / max|x_cpu| at iterations '
+          + ', '.join(f'{k + 1}: {parted[k]:.1e}' for k in range(0, len(parted), 10))
+          + f'; merits at the last common iteration {merits[-1][0]:.6g} (card), '
+          f'{merits[-1][1]:.6g} (CPU)', flush=True)
+    require(len(parted) >= COATING_COMPARED, 'fewer than 10 L-BFGS-B iterates to compare')
+    iterate_err = max(parted[:COATING_COMPARED])
+    checks = [
+        ('refine lbfgsb f64, card vs CPU: first 10 iterates (rel; new: f64 rounding grown '
+         'through 10 steps)', iterate_err, 1e-9),
+        # the two runs part by f64 rounding, about 10x per 10 iterations (printed above): after
+        # 100 they are two paths into the same valley, both about 7e4 times below the start
+        ('refine lbfgsb f64, card vs CPU: final merit (rel; new: the paths part by rounding)',
+         abs(refined[f64].merit - cpu['merit']) / cpu['merit'], 0.25),
+        ('refine lbfgsb: merit lowered from the start, f64 (final / start)',
+         refined[f64].merit / v64, 1.0 - 1e-3),
+        ('refine lbfgsb: merit lowered from the start, f32 (final / start)',
+         refined[f32].merit / v32, 1.0 - 1e-3),
+        ('refine lm: merit lowered from the start, f64 (final / start)', lm.merit / v64,
+         1.0 - 1e-3),
+        ('R + T = 1 on the refined lossless stack, f64 (abs; new: f64 rounding)',
+         energy_balance(d64, refined[f64].stack), 1e-12),
+        (f'R + T = 1 on the refined lossless stack, f32 (abs; {src})',
+         energy_balance(designs[f32], refined[f32].stack), COATING_F32_BARS['energy']),
+        ('PrysmLBFGSB vs LBFGSB: first iterate |x - x_scipy| (um; new: the same Cauchy step '
+         'and unit step, 3.1e-9 on the CPU)', steps_x[0], 1e-7),
+        ('PrysmLBFGSB vs LBFGSB: merit at each iterate (rel; new: the two line searches, '
+         '<= 1.5e-3 on the CPU)', max(steps_f), 1e-2),
+        ('synthesize f64, card vs CPU: layer count difference', abs(syn64.n_layers
+                                                                    - cpu['needle_layers']), 0),
+        ('synthesize f64, card vs CPU: merit (rel; new)',
+         abs(syn64.merit - cpu['needle_merit']) / cpu['needle_merit'], 1e-6),
+        ('synthesize: merit lowered from the start (final / start)',
+         syn64.merit / needle0, 0.5)]
+    run_checks(checks, width=96)
+    return designs, walls
+
+
+def phase_retrieval(dev):
+    """The optym phase retrieval in f32 through its entry point; returns it and its run."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import build_phase_retrieval_lbfgsb
+
+    pr = build_phase_retrieval_lbfgsb(N=N, fN=FN, device=dev)
+    per_fg, fg = [], pr.fg
+
+    def counted(c):
+        before = dict(zk.LAUNCHES)
+        out = fg(c)
+        per_fg.append({k: zk.LAUNCHES[k] - before[k] for k in zk.LAUNCHES})
+        return out
+
+    pr.fg = counted
+    zk.reset_launches()
+    noise.reset_launches()
+    t0 = time.perf_counter()
+    res = synced(pr)
+    wall = time.perf_counter() - t0
+    pr.fg = fg
+    launches = {**zk.LAUNCHES, **noise.LAUNCHES}
+    on_card(res.x, dev, torch.float32, 'the retrieval iterate')
+    err = float((res.x - pr.truth).abs().max())
+    print(f'  retrieval: {res.nit} iterations ({res.message}), {len(per_fg)} objective '
+          f'evaluations, {wall:.3f} s; launches {json.dumps(launches)}; coefficients '
+          f'{[round(float(v), 6) for v in res.x]}', flush=True)
+    require(all(d == {'zernike_fwd': 1, 'zernike_bwd_coefs': 1, 'zernike_bwd_all': 0}
+                for d in per_fg),
+            f'an objective evaluation did not launch one forward and one coefficient backward: '
+            f'{[d for d in per_fg if d != per_fg[0]][:3] or per_fg[:1]}')
+    require(launches['zernike_fwd'] == launches['zernike_bwd_coefs'] == len(per_fg)
+            and not launches['noise_expose'] and not launches['zernike_bwd_all'],
+            f'the retrieval launched {launches} for {len(per_fg)} evaluations')
+    run_checks([('retrieval coefficients vs the truth (abs; 2x the JAX package f32 with TF32 '
+                 'products, probes/coating_cpu_probe.py)', err, RETRIEVAL_TF32_BAR),
+                ('hand-written launches per objective evaluation - 2', max(
+                    abs(sum(d.values()) - 2) for d in per_fg), 0)], width=96)
+    # beside it, the same retrieval with float32 products (TF32 off)
+    exact = build_phase_retrieval_lbfgsb(pr.pupil, matmul_precision=None)
+    res32 = exact()
+    print(f'  retrieval with float32 MDFT products: {res32.nit} iterations ({res32.message}), '
+          f'coefficients {float((res32.x - pr.truth).abs().max()):.3e} from the truth (the JAX '
+          f'package f32 {RETRIEVAL_JAX_F32:.2e})', flush=True)
+    return pr, res, wall, len(per_fg)
+
+
+def count_syncs(fn):
+    """(fn's result, the host synchronisations it made), counted by torch's sync debug mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum('synchroniz' in str(w.message) for w in caught)
+
+
+def design_timing(smi, designs, walls, retrieval):
+    """Phase 4's lines for the coating design and the phase retrieval."""
+    from prysm_tpu_torch.x.optym import PrysmLBFGSB
+    fgs = {}
+    for dt, d in designs.items():
+        with d.configured():
+            p = d.problem()
+            x = p.x0()
+            fgs[f'coating_fg_ms_{str(dt)[6:]}'] = lambda p=p, x=x, d=d: p.fg(x)
+    pr, res, wall, evals = retrieval
+    c = pr.truth * 0.9
+    fgs['retrieval_fg_ms'] = lambda: pr.fg(c)
+    timing = step_ms(fgs, runs=20, warmup=3)
+    for key, ms in timing.items():
+        breakdown = device_breakdown(fgs[key], steps=3)
+        if breakdown is None:
+            print(f'{smi} | {key} {ms:.4f}; device ms per fg not measured (every profiler '
+                  'trace came back empty)', flush=True)
+            continue
+        busy, kernels_per, top = breakdown
+        print(f'{smi} | {key} {ms:.4f}; device ms per fg {busy:.4f} busy share {busy / ms:.3f}; '
+              f'device kernels per fg {kernels_per:.0f}; top: '
+              + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
+    # PrysmLBFGSB iterations on the f32 design from its start, with the host syncs they make
+    d32 = designs[torch.float32]
+    with d32.configured():
+        p = d32.problem()
+        opt = PrysmLBFGSB(p.fg, p.x0())
+        synced(opt.step)
+        n, nfev0 = 10, opt.nfev
+        t0 = time.perf_counter()
+        _, syncs = count_syncs(lambda: synced(lambda: [opt.step() for _ in range(n)]))
+        it_ms = (time.perf_counter() - t0) * 1e3 / n
+    per_it = (opt.nfev - nfev0) / n
+    print(f'{smi} | coating_lbfgsb_iteration_ms_float32 {it_ms:.4f} (host wall, iterations 2-11); '
+          f'objective evaluations per iteration {per_it:.2f}; host syncs per iteration '
+          f'{syncs / n:.1f} ({syncs / n / per_it:.1f} per evaluation)', flush=True)
+    print(f'{smi} | ' + '; '.join(f'{k}_s {v:.3f}' for k, v in walls.items())
+          + ' (host wall, phase 3j runs)', flush=True)
+    print(f'{smi} | retrieval_iteration_ms {wall * 1e3 / max(res.nit, 1):.4f} (host wall, '
+          f'{res.nit} iterations, {evals} evaluations, {evals / max(res.nit, 1):.2f} per '
+          f'iteration); hand-written launches per fg 2', flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
@@ -1485,14 +1834,28 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available; nothing was run', file=sys.stderr)
         return 1
-    from prysm_tpu_torch.ops import _cuda, noise
-    from prysm_tpu_torch.ops import zernike as zk
-    from prysm_tpu_torch.steps import build_cfg3_step, build_cfg4_chain, build_cfg5_frame
+    import prysm_tpu_torch.steps  # noqa: F401 (fails here, before any worker, without the package)
 
     start = time.perf_counter()
 
     def stamp():
         return f'[{time.perf_counter() - start:.1f} s]'
+
+    # phase 3j's f64 CPU reference runs in a worker process from here on
+    import multiprocessing
+    workers = multiprocessing.get_context('spawn').Pool(1)
+    try:
+        cpu_ref = workers.apply_async(coating_cpu_reference)
+        return run(start, stamp, cpu_ref)
+    finally:
+        workers.terminate()
+        workers.join()
+
+
+def run(start, stamp, cpu_ref):
+    from prysm_tpu_torch.ops import _cuda, noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import build_cfg3_step, build_cfg4_chain, build_cfg5_frame
 
     dev = torch.device('cuda', 0)
     smi = card()
@@ -1576,10 +1939,22 @@ def main():
     metrology = phase_metrology(dev)
     film = phase_thinfilm(dev)
     torch.cuda.synchronize()
+    print(f'phase 3j: coating design (41-layer edge filter, 1024 wavelengths x 2 angles, s and '
+          f'p; refine by L-BFGS-B and DLS; needle synthesis) {stamp()}', flush=True)
+    zk.reset_launches()
+    noise.reset_launches()
+    designs, walls = phase_coating(dev, cpu_ref)
+    no_kernel_launches('coating design')
+    torch.cuda.synchronize()
+    print(f'phase 3k: phase retrieval by PrysmLBFGSB (cfg2 at {N}^2 -> {FN}^2, 40 iterations) '
+          f'{stamp()}', flush=True)
+    retrieval = phase_retrieval(dev)
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
     kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
                            metrology, film)
+    design_timing(smi, designs, walls, retrieval)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

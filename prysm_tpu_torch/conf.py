@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 __all__ = ['config', 'Config', 'resolve_device', 'set_matmul_precision', 'to_tensor',
-           'numpy_dtype', 'precision_as']
+           'numpy_dtype', 'precision_as', 'device_as']
 
 # the JAX package's matmul modes, as torch's TF32 switch for float32 matmuls
 _TF32_FOR_MODE = {'highest': False, 'high': True, 'default': True}
@@ -149,6 +149,17 @@ def precision_as(dtype):
         yield
     finally:
         config._precision = saved
+
+
+@contextmanager
+def device_as(device):
+    """Run a block with ``config.device`` set to ``device``, restored after."""
+    saved = config._device
+    config.device = device
+    try:
+        yield
+    finally:
+        config._device = saved
 
 
 def complex_for(dtype):

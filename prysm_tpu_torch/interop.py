@@ -19,7 +19,8 @@ from .steps import Pupil
 __all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_numpy',
            'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
            'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy',
-           'interferogram_from_numpy', 'scheme_from_numpy']
+           'interferogram_from_numpy', 'scheme_from_numpy', 'stack_from_numpy',
+           'optimizer_state_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -220,3 +221,42 @@ def scheme_from_numpy(shifts, s, c):
     """An ``x.psi.Scheme`` from a JAX scheme's shifts, sine and cosine weights."""
     from .x.psi import Scheme
     return Scheme(np.asarray(shifts), np.asarray(s), np.asarray(c))
+
+
+def stack_from_numpy(indices, thicknesses, substrate_index, ambient_index=1.0, device=None,
+                     dtype=None):
+    """An ``x.coatings.Stack`` from a JAX stack's layer indices and thicknesses as numpy.
+
+    ``indices`` are the layers' numbers (or callables), ambient side first;
+    ``thicknesses`` go to ``device`` (default ``config.device``) in ``dtype``
+    (default ``config.precision``).
+    """
+    from .conf import config, precision_as
+    from .x.coatings import Stack
+    dtype = config.precision if dtype is None else dtype
+    media = [v.item() if isinstance(v, np.generic) else v for v in indices]
+    with precision_as(dtype):
+        return Stack(media, _tensor(np.asarray(thicknesses), resolve_device(device), dtype),
+                     substrate_index, ambient_index)
+
+
+def optimizer_state_from_numpy(state, device=None):
+    """The port's attribute values from an optym state the JAX package wrote.
+
+    ``state`` is the dict of ``optimizer_state`` (name -> (tag, value)), or
+    a whole ``save_checkpoint`` payload (its ``'state'`` is taken).  Arrays
+    become tensors on ``device`` (default ``config.device``), keeping their
+    dtype, except for the SciPy-driven ``LBFGSB``, whose driver buffers stay
+    host numpy; tuples and lists of arrays keep their kind.  Returns
+    {name: value}, ready for ``vars(optimizer).update(...)`` on an optimizer
+    built with the same objective.
+    """
+    from .x.optym.checkpoint import FORMAT, _restore_value
+    host = False
+    if 'state' in state and 'format' in state:
+        if state['format'] != FORMAT:
+            raise ValueError(f"not an optym checkpoint payload: {state['format']!r}")
+        host = state.get('optimizer_type') == 'LBFGSB'
+        state = state['state']
+    like = np.zeros(0) if host else torch.empty(0, device=resolve_device(device))
+    return {name: _restore_value(tagged, like) for name, tagged in state.items()}

@@ -37,7 +37,14 @@ Counterparts, without any timing harness, of
 * the interferometer-analysis path: 13-frame phase-shifting
   interferometry of a 100 mm flat on a 1024^2 camera, unwrapped, masked,
   with piston, tilt and power removed and spikes clipped, then its
-  statistics, PSD, band-limited RMS, azimuthal average, lowpass and slopes.
+  statistics, PSD, band-limited RMS, azimuthal average, lowpass and slopes;
+* the coating designer's path: a 41-layer (HL)^20 H edge filter with
+  perturbed thicknesses refined against a reflect / transmit target over
+  1024 wavelengths x 2 angles (bounded L-BFGS-B and damped least squares),
+  and a broadband AR grown by needle synthesis;
+* phase retrieval driven by optym's L-BFGS-B: cfg2's pupil, plan and
+  intensity L2 loss as the objective of ``PrysmLBFGSB``, from 0.8 x the
+  true coefficients inside a +-60 box.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -50,15 +57,19 @@ fit and the sag families; ``build_image_chain`` one that returns the two
 blurred images; ``build_cfg6_trace`` one that returns the
 ``RayTraceResult`` of the merged bundle, ``build_cfg6_grad`` one that
 returns the spot loss and its curvature gradient, ``build_metrology`` one
-that returns the analysis's results.
+that returns the analysis's results, ``build_coating_design`` one that
+returns the two refinements and the synthesis, and
+``build_phase_retrieval_lbfgsb`` one that returns the governed run's
+result.
 """
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .bayer import composite_bayer, demosaic_malvar
-from .conf import config, complex_for, precision_as, resolve_device
+from .conf import config, complex_for, device_as, precision_as, resolve_device
 from .convolution import apply_transfer_functions, conv
 from .coordinates import make_xy_grid, cart_to_polar
 from .degradations import jitter_ft, smear_ft
@@ -87,7 +98,12 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'CFG6_STOP', 'CFG6_RINGS', 'cfg6_system', 'build_cfg6_trace', 'build_cfg6_grad',
            'METROLOGY_DIAMETER', 'METROLOGY_SEED', 'METROLOGY_PSD', 'METROLOGY_PSD_RMS',
            'METROLOGY_ZERNIKES', 'METROLOGY_TILT_WAVES', 'METROLOGY_CLIP', 'METROLOGY_BAND',
-           'METROLOGY_LOWPASS', 'metrology_measurement', 'build_metrology']
+           'METROLOGY_LOWPASS', 'metrology_measurement', 'build_metrology',
+           'COATING_WVL0', 'COATING_H', 'COATING_L', 'COATING_SUBSTRATE', 'COATING_PAIRS',
+           'COATING_SEED', 'COATING_SPREAD', 'COATING_REFLECT', 'COATING_TRANSMIT', 'COATING_AOI',
+           'COATING_MIN_THICKNESS', 'NEEDLE_BAND', 'NEEDLE_AOI', 'NEEDLE_MATERIALS', 'NEEDLE_START',
+           'NEEDLE_SETTINGS', 'build_coating_design', 'RETRIEVAL_START', 'RETRIEVAL_BOUND',
+           'RETRIEVAL_ITERS', 'build_phase_retrieval_lbfgsb']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -179,6 +195,19 @@ def make_cfg2_plan(pupil, fN=256, matmul_precision='high'):
                             device=pupil.r.device)
 
 
+def _cfg2_intensity(pupil, plan, fused=True):
+    """cfg2's forward: coefficients -> OPD -> MDFT focus -> intensity."""
+    def intensity(c):
+        if fused:
+            opd = zernike_sum_pallas(c, pupil.nms, pupil.r, pupil.t, grads='coefs')
+        else:
+            opd = sum_of_2d_modes(zernike_nm_seq(pupil.nms, pupil.r, pupil.t), c)
+        E = Wavefront.from_amp_and_phase(pupil.amp, opd, WVL, pupil.dx).focus_dft(plan)
+        return E.intensity.data
+
+    return intensity
+
+
 def build_cfg2_step(pupil=None, plan=None, fused=True, *, N=1024,
                     fN=256, matmul_precision='high', dtype=None, device=None):
     """cfg2: MDFT focus, L2 intensity loss against 0.5 x coefs, coefficient gradient.
@@ -194,14 +223,7 @@ def build_cfg2_step(pupil=None, plan=None, fused=True, *, N=1024,
         pupil = make_pupil(N, dtype=dtype, device=device)
     if plan is None:
         plan = make_cfg2_plan(pupil, fN, matmul_precision=matmul_precision)
-
-    def intensity(c):
-        if fused:
-            opd = zernike_sum_pallas(c, pupil.nms, pupil.r, pupil.t, grads='coefs')
-        else:
-            opd = sum_of_2d_modes(zernike_nm_seq(pupil.nms, pupil.r, pupil.t), c)
-        E = Wavefront.from_amp_and_phase(pupil.amp, opd, WVL, pupil.dx).focus_dft(plan)
-        return E.intensity.data
+    intensity = _cfg2_intensity(pupil, plan, fused)
 
     with torch.no_grad():
         I_meas = intensity(pupil.coefs * 0.5)
@@ -818,3 +840,187 @@ def build_metrology(N=1024, dtype=None, device=None, measurement=None):
     ``fit_psd(out)`` fits ``abc_psd`` to the azimuthal average.
     """
     return _Metrology(N, dtype=dtype, device=device, measurement=measurement)
+
+
+# the coating designer's edge filter: an (HL)^20 H quarter-wave stack at
+# 0.49 um, H Ta2O5-like and L SiO2 (constant indices), on a 1.52 substrate in
+# air; its thicknesses scaled by 1 + 0.05 N(0, 1) from a seeded generator;
+# the merit asks R = 1 over 0.44-0.54 um and T = 1 over 0.60-0.90 um (um, um,
+# samples) at 0 and 15 degrees, unpolarized
+COATING_WVL0, COATING_H, COATING_L, COATING_SUBSTRATE = 0.49, 2.10, 1.46, 1.52
+COATING_PAIRS, COATING_SEED, COATING_SPREAD = 20, 9, 0.05
+COATING_REFLECT, COATING_TRANSMIT = (0.44, 0.54, 256), (0.60, 0.90, 768)
+COATING_AOI = (0.0, 15.0)
+COATING_MIN_THICKNESS = 0.005
+# needle synthesis of a broadband AR for the same substrate: R = 0 over
+# 0.42-0.70 um at 0, 15 and 30 degrees from two quarter-waves at 0.55 um
+# (ambient side first), inserting either material
+NEEDLE_BAND, NEEDLE_AOI, NEEDLE_MATERIALS = (0.42, 0.70, 256), (0.0, 15.0, 30.0), (1.38, 2.10)
+NEEDLE_START = ((1.38, 2.10), (0.55 / (4 * 1.38), 0.55 / (4 * 2.10)))
+NEEDLE_SETTINGS = dict(z_samples=240, max_layers=24, max_iters=12, refine_kwargs={'maxiter': 40})
+
+
+def _spectral_grid(band, aoi_deg):
+    """(wvl (S, 1), theta (1, A)): a band's samples meshed against the angles (radians)."""
+    wvl = np.linspace(*band)[:, None]
+    return wvl, np.deg2rad(np.asarray(aoi_deg, dtype=np.float64))[None, :]
+
+
+class _Configured:
+    """A coating problem whose calls run inside ``configured()``: its attributes pass through."""
+
+    def __init__(self, problem, configured):
+        self._problem, self._configured = problem, configured
+
+    def __getattr__(self, name):
+        attr = getattr(self._problem, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            with self._configured():
+                return attr(*args, **kwargs)
+
+        return call
+
+
+class _CoatingDesign:
+    """The coating designer's path; calling it runs both refinements and the synthesis.
+
+    Planned once: the perturbed start ``stack0`` and the edge filter's
+    ``merit``, the needle synthesis's ``needle_start`` and ``needle_merit``,
+    all in the path's dtype on its device.  Every call runs with
+    ``config.precision`` and ``config.device`` set to them, so that the
+    stacks the optimizers build go there too.
+    """
+
+    def __init__(self, pairs=COATING_PAIRS, samples=None, needle_samples=None,
+                 needle=None, dtype=None, device=None):
+        from .x.coatings import Reflectance, Stack, Transmittance
+        self.dtype = config.precision if dtype is None else dtype
+        self.device = resolve_device(device)
+        reflect, transmit = COATING_REFLECT, COATING_TRANSMIT
+        if samples is not None:
+            reflect, transmit = reflect[:2] + (samples[0],), transmit[:2] + (samples[1],)
+        band = NEEDLE_BAND if needle_samples is None else NEEDLE_BAND[:2] + (needle_samples,)
+        self.needle = dict(NEEDLE_SETTINGS, **(needle or {}))
+        indices = [COATING_H, COATING_L] * pairs + [COATING_H]
+        quarter = COATING_WVL0 / (4 * np.asarray(indices))
+        rng = np.random.default_rng(COATING_SEED)
+        self.start = quarter * (1 + COATING_SPREAD * rng.standard_normal(len(indices)))
+        with self.configured():
+            self.stack0 = Stack(indices, self.start, COATING_SUBSTRATE)
+            self.merit = [Reflectance(*_spectral_grid(reflect, COATING_AOI), pol='avg', target=1.0),
+                          Transmittance(*_spectral_grid(transmit, COATING_AOI), pol='avg',
+                                        target=1.0)]
+            self.needle_start = Stack(NEEDLE_START[0], NEEDLE_START[1], COATING_SUBSTRATE)
+            self.needle_merit = [Reflectance(*_spectral_grid(band, NEEDLE_AOI), pol='avg',
+                                             target=0.0)]
+
+    @contextmanager
+    def configured(self):
+        """A block with ``config.precision`` and ``config.device`` set to the path's."""
+        with precision_as(self.dtype), device_as(self.device):
+            yield
+
+    def problem(self, **kwargs):
+        """The edge filter's ``CoatingProblem`` (every thickness, or ``variables='index'``),
+        whose evaluations run with the path's precision and device."""
+        from .x.coatings import CoatingProblem
+        with self.configured():
+            return _Configured(CoatingProblem(self.stack0, self.merit, **kwargs),
+                               self.configured)
+
+    def refine(self, method='lbfgsb', maxiter=100, **kwargs):
+        """``x.coatings.refine`` of the edge filter, thicknesses kept above 5 nm."""
+        from .x.coatings import refine
+        with self.configured():
+            return refine(self.stack0, self.merit, method=method, maxiter=maxiter,
+                          min_thickness=COATING_MIN_THICKNESS, **kwargs)
+
+    def synthesize(self):
+        """``x.coatings.synthesize`` of the broadband AR from its two-layer start."""
+        from .x.coatings import synthesize
+        with self.configured():
+            return synthesize(self.needle_start, self.needle_merit, NEEDLE_MATERIALS,
+                              **self.needle)
+
+    def __call__(self):
+        """{'lbfgsb': 100 iterations, 'lm': 10 iterations, 'needle': the synthesis}."""
+        return {'lbfgsb': self.refine('lbfgsb', 100), 'lm': self.refine('lm', 10),
+                'needle': self.synthesize()}
+
+
+def build_coating_design(pairs=COATING_PAIRS, samples=None, needle_samples=None, needle=None,
+                         dtype=None, device=None):
+    """The coating designer's path: an edge filter refined two ways, and a needle-grown AR.
+
+    The edge filter is a (2 ``pairs`` + 1)-layer (HL)^pairs H quarter-wave
+    stack at 0.49 um with 5% seeded thickness errors; its merit asks R = 1
+    over 0.44-0.54 um and T = 1 over 0.60-0.90 um (``samples`` = (R, T)
+    wavelength counts, default (256, 768)) at 0 and 15 degrees, s and p
+    averaged.  Calling the result runs ``refine`` by bounded L-BFGS-B (100
+    iterations) and by damped least squares (10), and ``synthesize`` of a
+    broadband AR (0.42-0.70 um, ``needle_samples`` wavelengths, default 256;
+    0/15/30 degrees; ``needle`` overrides ``NEEDLE_SETTINGS``).
+    """
+    return _CoatingDesign(pairs, samples, needle_samples, needle, dtype=dtype, device=device)
+
+
+# phase retrieval by optym: cfg2's problem from 0.8 x the true coefficients,
+# inside a +-60 nm box, for 40 L-BFGS-B iterations
+RETRIEVAL_START, RETRIEVAL_BOUND, RETRIEVAL_ITERS = 0.8, 60.0, 40
+
+
+class _PhaseRetrieval:
+    """cfg2's intensity L2 loss as the objective of ``PrysmLBFGSB``; call it to run.
+
+    ``fg(c)`` is the loss and its coefficient gradient (through the fused
+    Zernike kernels on the card); ``optimizer()`` a fresh ``PrysmLBFGSB``
+    at the start; calling runs it under ``MaxIterations(iters)``.
+    """
+
+    def __init__(self, pupil, plan, iters, fused=True):
+        self.pupil, self.plan, self.iters = pupil, plan, int(iters)
+        self.intensity = _cfg2_intensity(pupil, plan, fused)
+        self.truth = pupil.coefs
+        with torch.no_grad():
+            self.I_meas = self.intensity(self.truth)
+
+    def fg(self, c):
+        """(loss, coefficient gradient) at c."""
+        c = c.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = torch.sum((self.intensity(c) - self.I_meas) ** 2)
+        grad, = torch.autograd.grad(loss, c)
+        return loss.detach(), grad
+
+    def optimizer(self):
+        """A ``PrysmLBFGSB`` at 0.8 x the truth with the +-60 box."""
+        from .x.optym import PrysmLBFGSB
+        bound = torch.full_like(self.truth, RETRIEVAL_BOUND)
+        return PrysmLBFGSB(self.fg, self.truth * RETRIEVAL_START,
+                           lower_bounds=-bound, upper_bounds=bound)
+
+    def __call__(self, optimizer=None):
+        """``run_until(optimizer, MaxIterations(iters))``; its OptimizationResult."""
+        from .x.optym import MaxIterations, run_until
+        opt = self.optimizer() if optimizer is None else optimizer
+        return run_until(opt, MaxIterations(self.iters))
+
+
+def build_phase_retrieval_lbfgsb(pupil=None, plan=None, *, N=1024, fN=256, iters=RETRIEVAL_ITERS,
+                                 matmul_precision='high', fused=True, dtype=None, device=None):
+    """Phase retrieval driven by optym's L-BFGS-B at cfg2's size.
+
+    cfg2's pupil (``make_pupil(N)``), its TF32 MDFT plan to fN^2 and its
+    intensity L2 loss against the image of the true coefficients
+    (``COEFS6``); ``PrysmLBFGSB`` starts at 0.8 x the truth inside a +-60
+    box and runs ``iters`` iterations.  Every objective evaluation launches
+    the Zernike forward and coefficient-backward kernels on the card.
+    """
+    if pupil is None:
+        pupil = make_pupil(N, dtype=dtype, device=device)
+    if plan is None:
+        plan = make_cfg2_plan(pupil, fN, matmul_precision=matmul_precision)
+    return _PhaseRetrieval(pupil, plan, iters, fused=fused)

@@ -36,6 +36,18 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15
 
 
+def test_slice9_modules_match_the_jax_package():
+    """x/optym and x/coatings hold the JAX package's module names, and import no matplotlib."""
+    import subprocess
+    for pkg in ('optym', 'coatings'):
+        want = {p.name for p in (ROOT / 'prysm_tpu' / 'x' / pkg).glob('*.py')}
+        got = {p.name for p in (ROOT / 'prysm_tpu_torch' / 'x' / pkg).glob('*.py')}
+        assert got == want, (pkg, want ^ got)
+    code = ('import sys, prysm_tpu_torch.x.optym, prysm_tpu_torch.x.coatings; '
+            'assert "matplotlib" not in sys.modules and "jax" not in sys.modules')
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
+
+
 # the optics-core modules of the cfg3/cfg4 slice: each is one of the files the
 # import check above reads, and imports without a card
 SLICE5_MODULES = ('mathops', 'coordinates', 'geometry', 'otf', 'segmented', 'fttools', 'psf',
@@ -66,13 +78,21 @@ SLICE8_MODULES = ('util', 'wavelengths', 'refractive', 'plotting', '_richdata', 
                   'interferogram', 'thinlens', 'thinfilm', 'profiling', 'sample_data', 'x.psi')
 
 
+# optym and coatings: the coating designer's and the L-BFGS-B phase retrieval's slice
+SLICE9_MODULES = ('x.optym', 'x.coatings') + tuple(f'x.optym.{m}' for m in (
+    'problem', 'governors', 'linesearch', 'lbfgsb', 'optimizers', 'least_squares', 'checkpoint',
+    'cost', 'activation', 'operators', 'sample_problems', 'plotting')) + tuple(
+    f'x.coatings.{m}' for m in ('stack', 'diff', 'merit', 'problem', 'refine', 'needle',
+                                'monitoring', 'rugate', 'common_materials', 'plotting'))
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
 
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
-                         + SLICE8_MODULES)
+                         + SLICE8_MODULES + SLICE9_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
