@@ -13,10 +13,10 @@ Phases, each of which raises on a failed check:
    times and each kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card: the
    Zernike kernels in f32 at 1024^2, at 1023^2, on views that start off a
-   16-byte boundary and with angles past sincosf's fast range, for four
-   mode sets (6 modes in the 4-slot kernels; 45 in the 32-slot ones; the
-   66 to n = 10 and 34 radial orders to n = 66, each run by the 32-slot
-   kernels in two launches) and both norms, the coefficient cotangents
+   16-byte boundary and with angles past sincosf's fast range, for five
+   mode sets (6 modes in the 4-slot kernels; 45, and phase 3l's 36, in the
+   32-slot ones; the 66 to n = 10 and 34 radial orders to n = 66, each run
+   by the 32-slot kernels in two launches) and both norms, the coefficient cotangents
    also mode by mode, each against its own size, bit-identical from run
    to run (the coefficient backward's and the full backward's), one
    device kernel per call (per piece of a longer program) and no other
@@ -112,7 +112,27 @@ Phases, each of which raises on a failed check:
       evaluation launching exactly one Zernike forward and one coefficient
       backward kernel; beside it, the same retrieval with float32 MDFT
       products, its error printed;
-   the paths of c-e, g-j run no hand-written kernel: their launch
+   l. the wavefront-control step (``steps.build_wavefront_control``: a
+      1024^2 pupil, 36 Zernike modes through the fused kernels with
+      grads='coefs', plus the WFE of a 50 x 50 DM folded 10 degrees, TF32
+      MDFT to 256^2, the intensity loss against the unaberrated PSF and its
+      actuator and coefficient gradients) for 5 steps, each launching the
+      forward and coefficient-backward kernels as often as the 36-mode
+      plan's pieces; against f64 on the card from the same grids (the mode
+      stack): the OPD, the PSF with f32 and with TF32 products, both
+      gradients and the loss; the step's Shack-Hartmann frame (32 x 32
+      lenslets of 32 samples, angular spectrum over their focal length);
+      in f64 an unfolded DM's ``render_adjoint`` chain against autograd
+      (the folded DM's difference printed);
+   m. at 256^2: a 4-step PSPDI measurement recovered through ``x/psi``
+      against the true phase, the SRI forward model and its fiber
+      coupling, a charge-2 vector vortex through ``jones_adapter(focus)``
+      (the four components' intensities against the scalar vortices), f32
+      against f64; an MWIR germanium singlet from
+      ``infrared_catalog(80.0)`` and ``(295.0)`` traced in f32 and f64: its
+      EFL at each temperature and the shift, against f64 and the paraxial
+      EFL;
+   the paths of c-e, g-j and m run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
@@ -139,7 +159,10 @@ Phases, each of which raises on a failed check:
    device kernels), a ``PrysmLBFGSB`` iteration with its evaluations and
    host synchronisations (counted under ``torch.cuda.set_sync_debug_mode``),
    the two refinements' and the synthesis's wall times, and the phase
-   retrieval's ms per iteration and per evaluation with its launches;
+   retrieval's ms per iteration and per evaluation with its launches; the
+   wavefront-control step, the DM render alone and the Shack-Hartmann
+   frame, in turns with the steps above, each with its device time, busy
+   share, device kernels and hand-written launches per call;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -244,6 +267,21 @@ HEAD_TO_HEAD_BOX = 0.02
 # port's float64 run 3.6e-15)
 RETRIEVAL_TF32_BAR = 8.4e-5
 RETRIEVAL_JAX_F32 = 1.91e-6
+# phase 3l's bar on the TF32 PSF: the cfg2 MDFT's TF32 field is 2.3e-5 from f64 (PR 1),
+# about twice that in intensity; twice again
+WFC_TF32_PSF_BAR = 1e-4
+# phase 3m at 256^2: the PSPDI pupil (epd mm, efl mm, um), its aberration ((n, m) and nm,
+# over the pupil radius), the pinhole (the model's units: its window is this many um
+# across, 0.55 lambda F#; the default 0.25 passes a reference weaker than the zero order's
+# wings in the test window, which then carry the fringes); the recovery's bar, twice its
+# f64 error (5.75e-3 rad rms for 0.29 rad of phase, which this phase prints; the same on
+# the CPU); the MWIR germanium singlet
+# (curvature 1/mm and thickness mm of each surface, 4 um, ray heights mm)
+N_INSTR, INSTR_EPD, INSTR_EFL, INSTR_WVL = 256, 10.0, 100.0, 0.55
+INSTR_ZERNIKES = (((2, 0), (2, 2), (3, -1), (3, 3), (4, 0)), (20.0, -15.0, 10.0, 8.0, -6.0))
+INSTR_PINHOLE, INSTR_PSPDI_BAR = 3.0, 1.2e-2
+INSTR_GE_LENS, INSTR_GE_WVL = ((1 / 100.0, 8.0), (1 / 150.0, 95.0)), 4.0
+INSTR_GE_HEIGHTS = (0.5, 1.0, 2.0)
 # the thin-film check: (HL)^16 quarter-wave at 0.55 um on glass, 4096
 # wavelengths x 90 angles, s and p
 FILM_INDICES, FILM_SUBSTRATE, FILM_WVL0 = (2.35, 1.46) * 16, 1.52, 0.55
@@ -404,7 +442,7 @@ def device_ops_per_call(fn, dev):
 def phase_kernels(dev):
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.polynomials import zernike_nm_seq
-    from prysm_tpu_torch.steps import NMS6
+    from prysm_tpu_torch.steps import NMS6, WFC_NMS
 
     gen = torch.Generator().manual_seed(SEED + 2)
     worst = {k: 0.0 for k in KERNEL_ROWS}
@@ -412,7 +450,8 @@ def phase_kernels(dev):
     print(f'  compiled program sizes: {buckets}', flush=True)
     pieces = {}
     for nms, want, n_pieces in ((NMS6, buckets[0], 1), (NMS45, buckets[-1], 1),
-                                (NMS66, buckets[-1], 2), (RADIAL34, buckets[-1], 2)):
+                                (WFC_NMS, buckets[-1], 1), (NMS66, buckets[-1], 2),
+                                (RADIAL34, buckets[-1], 2)):
         plan = zk._plan(nms, True)
         kmax = zk._bucket(len(zk._program(plan)), buckets)
         blobs, rows = zk._params(plan, kmax)
@@ -487,7 +526,7 @@ def phase_kernels(dev):
             require(not names or len(names) == pieces[nms],
                     f'{name} ran {len(names)} device kernels per call for {len(nms)} modes '
                     f'in the profiler\'s trace, not {pieces[nms]}')
-    return worst
+    return worst, pieces
 
 
 # ---------------------------------------------------------------------------
@@ -1470,6 +1509,242 @@ def phase_retrieval(dev):
     return pr, res, wall, len(per_fg)
 
 
+def wfc_reference(wfc, fN, dm=None):
+    """The wavefront-control step in f64, on wfc's device, from wfc's pupil grids (cast),
+    through the mode stack (the kernels compute in f32) and with f64 MDFT products to fN^2;
+    ``dm`` replaces the step's DM."""
+    import dataclasses
+    from prysm_tpu_torch.steps import build_wavefront_control
+    p = wfc.pupil
+    p64 = dataclasses.replace(p, r=p.r.double(), t=p.t.double(), amp=p.amp.double(),
+                              coefs=p.coefs.double())
+    return build_wavefront_control(p.r.shape[-1], nact=wfc.dm.actuators.shape[-1], fN=fN,
+                                   matmul_precision=None, fused=False, pupil=p64, dm=dm,
+                                   dtype=torch.float64, device=p.r.device)
+
+
+def opd_cotangent(w, acts, coefs):
+    """The loss's gradient with respect to the OPD, by autograd from the OPD on."""
+    opd = w.opd(acts, coefs).detach().requires_grad_(True)
+    loss = torch.sum((w.psf(opd) - w.I_ref) ** 2)
+    return torch.autograd.grad(loss, opd)[0]
+
+
+def phase_wavefront_control(dev, pieces):
+    """The wavefront-control step in f32 (TF32 MDFT) through its entry point for STEPS steps,
+    against f64 on the card; its Shack-Hartmann frame; the hand-written adjoint chain in f64.
+    ``pieces``: the launches of each Zernike kernel that the 36-mode plan takes (phase 2)."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    from prysm_tpu_torch.steps import (WFC_NACT, WFC_NMS, build_wavefront_control,
+                                       make_cfg2_plan, sh_geometry)
+    from prysm_tpu_torch.x.dm import DM
+
+    want = {'zernike_fwd': pieces, 'zernike_bwd_coefs': pieces, 'zernike_bwd_all': 0,
+            'noise_expose': 0}
+    print(f'  {len(WFC_NMS)} modes: {pieces} launch(es) in each direction per step', flush=True)
+    wfc = build_wavefront_control(N, fN=FN, device=dev)
+    a, c = wfc.dm.actuators, wfc.pupil.coefs
+    zk.reset_launches()
+    noise.reset_launches()
+    per_step = []
+    for i in range(STEPS):
+        before = {**zk.LAUNCHES, **noise.LAUNCHES}
+        loss, ga, gc = synced(lambda: wfc(a, c))
+        per_step.append({k: v - before[k] for k, v in {**zk.LAUNCHES, **noise.LAUNCHES}.items()})
+        require(bool(torch.isfinite(loss)) and bool(torch.isfinite(ga).all())
+                and bool(torch.isfinite(gc).all()), f'wavefront-control step {i}: not finite')
+        if i == 0:
+            out = {'loss': loss, 'ga': ga, 'gc': gc}
+        a, c = a - 1e-12 * ga, c - 1e-12 * gc
+    print(f'  launches per wavefront-control step: {json.dumps(per_step)}', flush=True)
+    require(all(d == want for d in per_step),
+            f'a wavefront-control step did not launch {want}: {per_step}')
+    require(ga.shape == (WFC_NACT, WFC_NACT) and gc.shape == (len(WFC_NMS),)
+            and ga.dtype == gc.dtype == torch.float32, 'wavefront-control gradients: shape/dtype')
+    a, c = wfc.dm.actuators, wfc.pupil.coefs
+    with torch.no_grad():
+        opd = wfc.opd(a, c)
+        psf = wfc.psf(opd)
+        frame = wfc.sensor(a, c)
+    with torch.no_grad():
+        exact = make_cfg2_plan(wfc.pupil, FN, matmul_precision=None)
+        psf_f32 = wfc.field(opd).focus_dft(exact).intensity.data
+    ref = wfc_reference(wfc, FN)
+    a64, c64 = ref.dm.actuators, ref.pupil.coefs
+    loss64, ga64, gc64 = synced(lambda: ref(a64, c64))
+    with torch.no_grad():
+        opd64 = ref.opd(a64, c64)
+        psf64 = ref.psf(opd64)
+        frame64 = ref.sensor(a64, c64)
+    n, pitch, efl = sh_geometry(N)
+    # an f32 lenslet screen would share other edge samples than the f64 one: the
+    # step builds its screen in f64 and casts it (steps.py)
+    from prysm_tpu_torch.coordinates import make_xy_grid
+    from prysm_tpu_torch.x.shack_hartmann import shack_hartmann
+    from prysm_tpu_torch.steps import WVL
+    x32, y32 = make_xy_grid(N, diameter=2.2, device=dev)
+    screen32 = shack_hartmann(pitch, n, efl, WVL, x32, y32, shift=True)
+    off = (torch.angle(screen32 * wfc.screen.conj()).abs() > 1e-3).sum()
+    print(f'  wavefront control: loss {float(out["loss"]):.6e} (f64 {float(loss64):.6e}), OPD peak '
+          f'{float(opd64.abs().max()):.4e} nm on the grid, in the pupil '
+          f'{float(opd64[ref.pupil.amp > 0].abs().max()):.4e}; Shack-Hartmann {n} x {n} lenslets, '
+          f'pitch {pitch:.6f} mm, f {efl:.6f} mm, {WVL} um; samples an f32-built screen '
+          f'shares otherwise: {int(off)}', flush=True)
+    # the hand-written chain, in f64: autograd's actuator gradient against DM.render_adjoint
+    # of the OPD cotangent; exact for an unfolded DM, while for the folded one the
+    # adjoint pulls through the inverse projection (no Jacobian, other weights)
+    unfolded = DM(ref.dm.ifn, N, Nact=ref.dm.Nact, sep=ref.dm.sep)
+    flat = wfc_reference(wfc, FN, dm=unfolded)
+    _, ga_flat, _ = flat(a64, c64)
+    chain_flat = rel(unfolded.render_adjoint(opd_cotangent(flat, a64, c64)), ga_flat)
+    chain_fold = rel(ref.dm.render_adjoint(opd_cotangent(ref, a64, c64)), ga64)
+    print(f'  folded DM (10 degrees): DM.render_adjoint of the OPD cotangent vs autograd '
+          f'{chain_fold:.4e} (rel; 1 - cos 10 deg = {1 - math.cos(math.radians(10)):.4e})',
+          flush=True)
+    run_checks([
+        ('OPD, fused f32 vs f64 mode stack (peak rel, same grids)', rel(opd, opd64), 1e-6),
+        ('PSF, f32 MDFT products (peak rel)', rel(psf_f32, psf64), 2e-5),
+        ('PSF, TF32 MDFT (peak rel)', rel(psf, psf64), WFC_TF32_PSF_BAR),
+        ('actuator gradient, TF32 (rel)', rel(out['ga'], ga64), 1e-3),
+        ('coefficient gradient, TF32 (rel)', rel(out['gc'], gc64), 1e-3),
+        ('loss, TF32 (rel)', rel(out['loss'], loss64), 1e-3),
+        ('Shack-Hartmann frame (peak rel)', rel(frame, frame64), 1e-4),
+        ('f64 unfolded DM: render_adjoint chain vs autograd (rel)', chain_flat, 1e-10),
+    ], width=60)
+    return wfc
+
+
+def pspdi_recovery(interferometer, wave, amp, phase, inner, scheme):
+    """(wrapped, miss): the phase a PSPDI measures of ``wave`` by x/psi's de Groot PSI over
+    ``scheme``'s shifts, less its measurement of the unaberrated ``amp``, wrapped to
+    [-pi, pi); and the measurement plus the true ``phase`` over ``inner``, piston removed."""
+    from prysm_tpu_torch.x import psi
+
+    def measure(w):
+        frames = [interferometer.forward_model(w, phase_shift=float(s)).data
+                  for s in scheme.shifts]
+        return psi.degroot_formalism_psi(frames, scheme)
+
+    wrapped = measure(wave) - measure(amp.to(wave.dtype))
+    wrapped = torch.remainder(wrapped + math.pi, 2 * math.pi) - math.pi
+    miss = (wrapped + phase)[inner]
+    return wrapped, miss - miss.mean()
+
+
+def phase_instruments(dev):
+    """Phase 3m at 256^2: a 4-step PSPDI measurement through x/psi, the SRI with its fiber
+    mode, a charge-2 vector vortex through jones_adapter(focus), and an MWIR germanium
+    singlet at 80 K and 295 K through the raytracer; f32 against f64 on the card."""
+    from prysm_tpu_torch.conf import precision_as
+    from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
+    from prysm_tpu_torch.geometry import circle_sdf, antialias
+    from prysm_tpu_torch.polynomials import zernike_nm_seq, sum_of_2d_modes
+    from prysm_tpu_torch.propagation import Wavefront, focus
+    from prysm_tpu_torch.x import fibers, pdi, psi, sri
+    from prysm_tpu_torch.x import polarization as pol
+
+    scheme = psi.design_scheme(4, stepsize=math.pi / 2)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        with precision_as(dt):
+            x, y = make_xy_grid(N_INSTR, diameter=INSTR_EPD * 1.1, dtype=dt, device=dev)
+            r, t = cart_to_polar(x, y)
+            dx = float(x[0, 1] - x[0, 0])
+            amp = antialias(circle_sdf(INSTR_EPD / 2, r), dx)
+            coefs = torch.tensor(INSTR_ZERNIKES[1], dtype=dt, device=dev)
+            phase = sum_of_2d_modes(zernike_nm_seq(INSTR_ZERNIKES[0], r / (INSTR_EPD / 2), t),
+                                    coefs) * (2 * math.pi / (INSTR_WVL * 1e3))
+            wave = amp * torch.polar(torch.ones_like(phase), phase)
+            dev_pdi = pdi.PSPDI(x, y, INSTR_EFL, INSTR_EPD, INSTR_WVL,
+                                pinhole_diameter=INSTR_PINHOLE)
+
+            inner = r < 0.9 * INSTR_EPD / 2
+            wrapped, miss = pspdi_recovery(dev_pdi, wave, amp, phase, inner, scheme)
+            interferometer = sri.SelfReferencedInterferometer(x, y, INSTR_EFL, INSTR_EPD,
+                                                              INSTR_WVL, fiber_samples=N_INSTR)
+            I_sri = interferometer.forward_model(wave, phase_shift=0.7).data
+            wf = Wavefront(wave, INSTR_WVL, dx)
+            _, at_fib, _, eta = sri.to_photonic_fiber_and_back(
+                wf, INSTR_EFL, interferometer.Efib, interferometer.dxfib,
+                interferometer.Ifibsum, return_more=True)
+            eta2 = fibers.mode_overlap_integral(at_fib.data, interferometer.Efib)
+            field = pol.apply_polarization_optic(amp.to(wave.dtype),
+                                                 pol.vector_vortex_retarder(2, t))
+            I_vvr = (pol.jones_adapter(focus)(field, 2).abs() ** 2).sum(dim=(-2, -1))
+            I_scalar = sum(focus(amp * torch.polar(torch.ones_like(t), k * t), 2).abs() ** 2
+                           for k in (2, -2))
+            out[dt] = dict(phase=phase, wrapped=wrapped, inner=inner, miss=miss, I_sri=I_sri,
+                           eta=eta, eta2=eta2, efib=float((interferometer.Efib ** 2).sum()),
+                           I_vvr=I_vvr, I_scalar=I_scalar, ge=germanium_singlet(dt, dev))
+    o32, o64 = out[torch.float32], out[torch.float64]
+    for k in ('I_sri', 'I_vvr', 'wrapped'):
+        require(o32[k].dtype == torch.float32 and bool(torch.isfinite(o32[k]).all()),
+                f'phase 3m: {k} is not finite float32')
+    ge32, ge64 = o32['ge'], o64['ge']
+    shift = {k: g[295.0]['efl'] - g[80.0]['efl'] for k, g in (('f32', ge32), ('f64', ge64))}
+    paraxial = ge64[295.0]['paraxial'] - ge64[80.0]['paraxial']
+    print(f'  PSPDI: phase rms {float(o64["phase"][o64["inner"]].std()):.4f} rad, recovered '
+          f'rms miss f64 {float(o64["miss"].std()):.3e} f32 {float(o32["miss"].std()):.3e} rad; '
+          f'SRI coupling {float(o64["eta"]):.6f}; germanium n(4 um) '
+          f'{ge64[80.0]["n"]:.6f} at 80 K, {ge64[295.0]["n"]:.6f} at 295 K; EFL '
+          f'{[round(float(v), 6) for v in ge64[80.0]["efl"]]} -> '
+          f'{[round(float(v), 6) for v in ge64[295.0]["efl"]]} mm (paraxial '
+          f'{ge64[80.0]["paraxial"]:.6f} -> {ge64[295.0]["paraxial"]:.6f})', flush=True)
+    checks = [
+        ('PSPDI recovered phase vs truth, f64 (rms rad, r <= 0.9)', float(o64['miss'].std()),
+         INSTR_PSPDI_BAR),
+        ('PSPDI recovered phase vs truth, f32 (rms rad, r <= 0.9)', float(o32['miss'].std()),
+         INSTR_PSPDI_BAR),
+        ('PSPDI wrapped phase f32 vs f64 (rad, r <= 0.9)', float(
+            (o32['wrapped'].double() - o64['wrapped'])[o64['inner']].abs().max()), 1e-4),
+        ('SRI intensity f32 vs f64 (peak rel)', rel(o32['I_sri'], o64['I_sri']), 1e-4),
+        ('SRI coupling vs fibers.mode_overlap_integral, f32 (rel)',
+         abs(float(o32['eta']) / float(o32['eta2']) - 1), 1e-6),
+        ('SRI fiber mode energy - 1, f32', abs(o32['efib'] - 1), 1e-6),
+        ('vector vortex: sum of Jones intensities vs scalar, f32 (peak rel)',
+         rel(o32['I_vvr'], o32['I_scalar']), 2e-5),
+        ('vector vortex f32 vs f64 (peak rel)', rel(o32['I_vvr'], o64['I_vvr']), 2e-5),
+    ]
+    for T in (80.0, 295.0):
+        checks.append((f'germanium singlet EFL at {T:g} K, f32 vs f64 (rel)',
+                       rel(ge32[T]['efl'], ge64[T]['efl']), 1e-5))
+    checks += [('germanium EFL shift 80 -> 295 K, f32 vs f64 (rel)',
+                rel(shift['f32'], shift['f64']), 1e-3),
+               ('germanium EFL shift, f64 trace vs paraxial (rel)',
+                float((shift['f64'] / paraxial - 1).abs().max()), 1e-3)]
+    run_checks(checks, width=64)
+
+
+def germanium_singlet(dtype, dev):
+    """{T: n, paraxial EFL, traced EFL of rays at INSTR_GE_HEIGHTS} of the MWIR germanium
+    singlet, its glass from infrared_catalog(T); every ray OK."""
+    from prysm_tpu_torch.conf import precision_as
+    from prysm_tpu_torch.x import materials as mat, raytracing as rt
+    from prysm_tpu_torch.x.raytracing import paraxial
+    from prysm_tpu_torch.x.raytracing.spencer_and_murty import raytrace
+
+    out = {}
+    h = torch.tensor(INSTR_GE_HEIGHTS, dtype=torch.float64)
+    for T in (80.0, 295.0):
+        ge = mat.infrared_catalog(T).material_for_name('GE')
+        lens = rt.LensData()
+        (c1, t1), (c2, t2) = INSTR_GE_LENS
+        lens.add(rt.Sphere(c1), thickness=t1, material=ge)
+        lens.add(rt.Sphere(c2), thickness=t2, material=mat.air)
+        surfaces = lens.to_surfaces()
+        P = torch.stack([torch.zeros_like(h), h, torch.full_like(h, -1.0)], 1)
+        S = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64).expand(len(h), 3)
+        with precision_as(dtype):
+            res = raytrace(surfaces, P.to(dev), S.to(dev), INSTR_GE_WVL)
+        require(res.P.dtype == dtype and bool((res.status.imag == 0).all()),
+                f'germanium singlet at {T} K, {dtype}: a ray failed')
+        Sy, Sz = res.S[-1, :, 1].double(), res.S[-1, :, 2].double()
+        out[T] = {'n': float(ge.n(INSTR_GE_WVL)), 'efl': -h.to(dev) * Sz / Sy,
+                  'paraxial': paraxial.effective_focal_length(surfaces, INSTR_GE_WVL)}
+    return out
+
+
 def count_syncs(fn):
     """(fn's result, the host synchronisations it made), counted by torch's sync debug mode."""
     import warnings
@@ -1624,7 +1899,8 @@ def device_breakdown(fn, steps=10, top=5, tries=3):
         (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
 
 
-def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, metrology, film):
+def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, metrology, film,
+                 wfc):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
@@ -1654,6 +1930,10 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, met
     calls['cfg6_grad_ms'] = grad6
     met32, ref64 = metrology
     calls['metrology_ms'] = met32
+    acts, coefs = wfc.dm.actuators, wfc.pupil.coefs
+    calls['wfc_step_ms'] = lambda: wfc(acts, coefs)
+    calls['dm_render_ms'] = lambda: wfc.render(acts)
+    calls['sh_frame_ms'] = lambda: wfc.sensor(acts, coefs)
     timing = step_ms(calls)
     for k, v in timing.items():
         print(f'{smi} | {k} {v:.4f}', flush=True)
@@ -1680,7 +1960,10 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, met
                                    ('cfg6_trace', 'cfg6_trace_ms', 'call', 10),
                                    ('cfg6_trace_hex256', 'cfg6_trace_hex256_ms', 'call', 5),
                                    ('cfg6_grad', 'cfg6_grad_ms', 'step', 5),
-                                   ('metrology', 'metrology_ms', 'call', 5)):
+                                   ('metrology', 'metrology_ms', 'call', 5),
+                                   ('wfc', 'wfc_step_ms', 'step', 10),
+                                   ('dm_render', 'dm_render_ms', 'call', 10),
+                                   ('sh_frame', 'sh_frame_ms', 'frame', 10)):
         wall = timing[key]
         breakdown = device_breakdown(calls[key], steps=steps)
         zk.reset_launches()
@@ -1855,7 +2138,8 @@ def main():
 def run(start, stamp, cpu_ref):
     from prysm_tpu_torch.ops import _cuda, noise
     from prysm_tpu_torch.ops import zernike as zk
-    from prysm_tpu_torch.steps import build_cfg3_step, build_cfg4_chain, build_cfg5_frame
+    from prysm_tpu_torch.steps import (WFC_NMS, build_cfg3_step, build_cfg4_chain,
+                                       build_cfg5_frame)
 
     dev = torch.device('cuda', 0)
     smi = card()
@@ -1879,7 +2163,7 @@ def run(start, stamp, cpu_ref):
 
     print('phase 2: kernels against their plain versions (f32; Zernike at 1024^2, '
           f'noise at cfg5 512^2 and 256^2) {stamp()}', flush=True)
-    worst = phase_kernels(dev)
+    worst, pieces = phase_kernels(dev)
     frame5 = build_cfg5_frame(N5, device=dev)
     worst['noise_expose'] = phase_noise(dev, frame5)
     torch.cuda.synchronize()
@@ -1950,10 +2234,21 @@ def run(start, stamp, cpu_ref):
           f'{stamp()}', flush=True)
     retrieval = phase_retrieval(dev)
     torch.cuda.synchronize()
+    print(f'phase 3l: wavefront control ({N}^2 pupil, 36 Zernike modes, 50 x 50 DM folded 10 '
+          f'degrees, TF32 MDFT to {FN}^2, 32 x 32 lenslets) x{STEPS} {stamp()}', flush=True)
+    wfc = phase_wavefront_control(dev, pieces[WFC_NMS])
+    torch.cuda.synchronize()
+    print(f'phase 3m: instruments at {N_INSTR}^2 (4-step PSPDI, SRI, vector vortex; germanium '
+          f'singlet at 80 and 295 K) {stamp()}', flush=True)
+    zk.reset_launches()
+    noise.reset_launches()
+    phase_instruments(dev)
+    no_kernel_launches('instruments')
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
     kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
-                           metrology, film)
+                           metrology, film, wfc)
     design_timing(smi, designs, walls, retrieval)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)

@@ -20,7 +20,7 @@ __all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_
            'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
            'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy',
            'interferogram_from_numpy', 'scheme_from_numpy', 'stack_from_numpy',
-           'optimizer_state_from_numpy']
+           'optimizer_state_from_numpy', 'dm_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -260,3 +260,18 @@ def optimizer_state_from_numpy(state, device=None):
         state = state['state']
     like = np.zeros(0) if host else torch.empty(0, device=resolve_device(device))
     return {name: _restore_value(tagged, like) for name, tagged in state.items()}
+
+
+def dm_from_numpy(ifn, Nout, Nact, sep, shift=(0, 0), rot=(0, 0, 0), upsample=1,
+                  actuators=None, dtype=None, device=None):
+    """An ``x.dm.DM`` from the JAX DM's state: its influence function (``dm.ifn``), the
+    lattice (Nout, Nact, sep), the shift, the rotation, the upsampling and the actuators.
+
+    The DM works in ``dtype`` (default: the influence function's) on ``device``.
+    """
+    from .x.dm import DM
+    ifn = _tensor(ifn, resolve_device(device), dtype)
+    dm = DM(ifn, Nout, Nact=Nact, sep=sep, shift=shift, rot=rot, upsample=upsample)
+    if actuators is not None:
+        dm.update(_tensor(actuators, ifn.device, ifn.dtype))
+    return dm

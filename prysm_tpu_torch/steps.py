@@ -44,7 +44,12 @@ Counterparts, without any timing harness, of
   and a broadband AR grown by needle synthesis;
 * phase retrieval driven by optym's L-BFGS-B: cfg2's pupil, plan and
   intensity L2 loss as the objective of ``PrysmLBFGSB``, from 0.8 x the
-  true coefficients inside a +-60 box.
+  true coefficients inside a +-60 box;
+* the wavefront-control path: a 36-mode aberration through the fused
+  Zernike sum plus a folded 50 x 50 DM's WFE, focused by cfg2's MDFT plan,
+  the intensity loss against the unaberrated PSF and its gradients with
+  respect to the actuators and the coefficients; beside it a
+  Shack-Hartmann frame of the same field.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -60,7 +65,8 @@ returns the spot loss and its curvature gradient, ``build_metrology`` one
 that returns the analysis's results, ``build_coating_design`` one that
 returns the two refinements and the synthesis, and
 ``build_phase_retrieval_lbfgsb`` one that returns the governed run's
-result.
+result, and ``build_wavefront_control`` one that takes the actuators and
+the coefficients and returns the loss and both gradients.
 """
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -103,7 +109,9 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'COATING_SEED', 'COATING_SPREAD', 'COATING_REFLECT', 'COATING_TRANSMIT', 'COATING_AOI',
            'COATING_MIN_THICKNESS', 'NEEDLE_BAND', 'NEEDLE_AOI', 'NEEDLE_MATERIALS', 'NEEDLE_START',
            'NEEDLE_SETTINGS', 'build_coating_design', 'RETRIEVAL_START', 'RETRIEVAL_BOUND',
-           'RETRIEVAL_ITERS', 'build_phase_retrieval_lbfgsb']
+           'RETRIEVAL_ITERS', 'build_phase_retrieval_lbfgsb', 'WFC_NMS', 'WFC_SEED', 'WFC_RMS',
+           'WFC_ACT_RMS', 'WFC_NACT', 'WFC_SEP', 'WFC_ROT', 'SH_SAMPLES', 'SH_SPOT', 'wfc_state',
+           'sh_geometry', 'build_wavefront_control']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -1024,3 +1032,137 @@ def build_phase_retrieval_lbfgsb(pupil=None, plan=None, *, N=1024, fN=256, iters
     if plan is None:
         plan = make_cfg2_plan(pupil, fN, matmul_precision=matmul_precision)
     return _PhaseRetrieval(pupil, plan, iters, fused=fused)
+
+
+# the wavefront-control path: an adaptive-optics user's step at prysm's DM
+# defaults.  36 Zernike modes (every (n, m) to n = 7) at about 50 nm rms and
+# a 50 x 50 DM at 5 nm rms, both drawn from WFC_SEED; the DM's actuators 20
+# samples apart with a Gaussian influence function one pitch wide (FWHM),
+# folded 10 degrees about y.  The Shack-Hartmann sensor: lenslets of 32
+# samples (N // 32 across, shifted to tile the grid), each spot's first zero
+# 4 samples from its centre (lambda f / pitch), so f = 4 * pitch * dx / lambda
+# (1.0742 mm at 1024^2, 0.55 um: Fresnel number 2.0, the lenslet phase's
+# steepest step pi / 4 a sample, 4 pi at a corner)
+WFC_NMS = tuple((n, m) for n in range(8) for m in range(-n, n + 1, 2))
+WFC_SEED, WFC_RMS, WFC_ACT_RMS = 12, 50.0, 5.0
+WFC_NACT, WFC_SEP, WFC_ROT = 50, 20, (0, 10, 0)
+SH_SAMPLES, SH_SPOT = 32, 4
+
+
+def wfc_state(nact=WFC_NACT):
+    """(coefficients (36,), actuators (nact, nact)): the path's seeded numpy state, nm."""
+    rng = np.random.default_rng(WFC_SEED)
+    coefs = rng.standard_normal(len(WFC_NMS)) * (WFC_RMS / np.sqrt(len(WFC_NMS)))
+    return coefs, rng.standard_normal((nact, nact)) * WFC_ACT_RMS
+
+
+def sh_geometry(N):
+    """(lenslets across, pitch mm, focal length mm) of the path's Shack-Hartmann sensor."""
+    dx = DIAMETER / N
+    pitch = SH_SAMPLES * dx
+    return N // SH_SAMPLES, pitch, SH_SPOT * pitch * dx / (WVL / 1e3)
+
+
+class _WavefrontControl:
+    """The wavefront-control step; call it with (actuators, coefficients).
+
+    Built once: the pupil and its mode grids, cfg2's MDFT plan, the DM and
+    its render function, the unaberrated PSF, the lenslet screen and the
+    sensor's angular-spectrum transfer function.
+    """
+
+    def __init__(self, N, nact, fN, matmul_precision, fused=True, pupil=None, dm=None,
+                 dtype=None, device=None):
+        from .geometry import gaussian
+        from .propagation import angular_spectrum_transfer_function
+        from .x.dm import DM
+        from .x.shack_hartmann import shack_hartmann
+        coefs, actuators = wfc_state(nact)
+        if pupil is None:
+            pupil = make_pupil(N, WFC_NMS, tuple(coefs), dtype=dtype, device=device)
+        self.pupil = pupil
+        r = self.pupil.r
+        self.modes = None if fused else zernike_nm_seq(pupil.nms, pupil.r, pupil.t)
+        self.plan = make_cfg2_plan(self.pupil, fN, matmul_precision=matmul_precision)
+        x, y = make_xy_grid(N, diameter=DIAMETER, dtype=r.dtype, device=r.device)
+        if dm is None:
+            dm = DM(gaussian(WFC_SEP * self.pupil.dx, x, y), Nout=N, Nact=nact, sep=WFC_SEP,
+                    rot=WFC_ROT)
+            dm.update(torch.as_tensor(actuators, dtype=r.dtype, device=r.device))
+        self.dm = dm
+        self.render = dm.render_fn(wfe=True)
+        with torch.no_grad():
+            self.I_ref = self.psf(torch.zeros_like(r))
+        # the screen is a calibration: built once in float64 and rounded, so that
+        # a sample on two lenslets' edges is shared alike in every precision
+        n, pitch, self.sh_efl = sh_geometry(N)
+        x64, y64 = make_xy_grid(N, diameter=DIAMETER, dtype=torch.float64, device=r.device)
+        self.screen = shack_hartmann(pitch, n, self.sh_efl, WVL, x64, y64,
+                                     shift=True).to(complex_for(r.dtype))
+        self.sensor_tf = angular_spectrum_transfer_function(N, WVL, self.pupil.dx, self.sh_efl,
+                                                            dtype=r.dtype, device=r.device)
+
+    def opd(self, actuators, coefs):
+        """The Zernike sum (fused, grads='coefs'; or over the mode stack) plus the DM's
+        reflected WFE, nm."""
+        p = self.pupil
+        if self.modes is None:
+            zern = zernike_sum_pallas(coefs, p.nms, p.r, p.t, grads='coefs')
+        else:
+            zern = sum_of_2d_modes(self.modes, coefs)
+        return zern + self.render(actuators)
+
+    def field(self, opd):
+        """The pupil field of an OPD."""
+        return Wavefront.from_amp_and_phase(self.pupil.amp, opd, WVL, self.pupil.dx)
+
+    def psf(self, opd):
+        """The focal intensity through the MDFT plan."""
+        return self.field(opd).focus_dft(self.plan).intensity.data
+
+    def loss(self, actuators, coefs):
+        """The intensity L2 loss against the unaberrated PSF."""
+        return torch.sum((self.psf(self.opd(actuators, coefs)) - self.I_ref) ** 2)
+
+    def __call__(self, actuators, coefs):
+        """(loss, actuator gradient, coefficient gradient)."""
+        a = actuators.detach().requires_grad_(True)
+        c = coefs.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = self.loss(a, c)
+        ga, gc = torch.autograd.grad(loss, (a, c))
+        return loss.detach(), ga, gc
+
+    @torch.no_grad()
+    def sensor(self, actuators, coefs):
+        """The Shack-Hartmann frame: the pupil field times the lenslet screen, by angular
+        spectrum over the lenslets' focal length to an N^2 detector intensity."""
+        E = self.field(self.opd(actuators, coefs)).data * self.screen
+        E = torch.fft.ifft2(torch.fft.fft2(E) * self.sensor_tf)
+        return E.real * E.real + E.imag * E.imag
+
+
+def build_wavefront_control(N=1024, nact=WFC_NACT, fN=256, matmul_precision='high',
+                            fused=True, pupil=None, dm=None, dtype=None, device=None):
+    """An adaptive-optics user's wavefront-control step at full pupil width.
+
+    An anti-aliased circular pupil on an N^2 grid (``make_pupil``) with 36
+    Zernike modes (``WFC_NMS``) through ``zernike_sum_pallas(...,
+    grads='coefs')``, plus the WFE of ``x.dm.DM`` (``nact`` x ``nact``
+    actuators ``WFC_SEP`` samples apart, a Gaussian influence function one
+    pitch wide, folded 10 degrees: ``warp`` and the obliquity are on the
+    path), focused to fN^2 by cfg2's MDFT plan (TF32 with
+    ``matmul_precision='high'``).  ``fused=False`` sums a mode stack
+    instead of running the Zernike kernels (which compute in float32), for
+    a float64 reference on the card.  Calling the result with (actuators,
+    coefficients) returns the intensity L2 loss against the unaberrated
+    PSF and its gradients with respect to both, by autograd; ``sensor``
+    gives a Shack-Hartmann frame of the same field (N // 32 lenslets of 32
+    samples across, ``sh_geometry``).  ``pupil`` and ``dm`` replace the
+    pupil (``make_pupil(N, WFC_NMS, ...)``) and the DM (for ones carried
+    over, ``interop.pupil_from_numpy`` and ``interop.dm_from_numpy``); the
+    starting state is ``wfc_state(nact)`` (``.pupil.coefs``,
+    ``.dm.actuators``).
+    """
+    return _WavefrontControl(N, nact, fN, matmul_precision, fused=fused, pupil=pupil,
+                             dm=dm, dtype=dtype, device=device)

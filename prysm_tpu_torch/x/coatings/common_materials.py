@@ -2,10 +2,8 @@
 
 Counterpart of ``prysm_tpu/x/coatings/common_materials.py``: curated
 token tables (book or (book, page) pairs against the refractiveindex.info
-namespace) with resolution through x/materials glass lookup.  The port's
-refractiveindex.info catalog is not ported yet, so resolving a token with
-no ``database`` given raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 23); a database that maps names to materials resolves them.
+namespace) with resolution through x/materials glass lookup: a
+``database`` given, or the default refractiveindex.info catalog.
 
 Provenance: the token tables below are reproduced verbatim from the
 reference — they are curated data (which materials belong to which

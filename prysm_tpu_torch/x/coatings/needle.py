@@ -185,11 +185,20 @@ class NeedleResult:
 
 
 def _best_insertion(stack, merit, materials, z):
-    """(P value, material, depth) of the most favorable insertion."""
+    """(P value, material, depth) of the most favorable insertion.
+
+    A needle of a host layer's own medium only thickens that layer, so every
+    depth inside it is the same insertion and P is flat there but for
+    rounding; the shallowest of those depths is taken, whatever the rounding.
+    """
     champion = (onp.inf, None, None)
+    Z = _layer_boundaries(stack)
+    hosts = onp.clip(onp.searchsorted(Z, z, side='right') - 1, 0, len(stack) - 1)
     for mat in materials:
         P = to_host(needle_function(stack, merit, mat, z))
         k = int(onp.argmin(P))
+        if _MediumKey(stack.indices[hosts[k]]) == _MediumKey(mat):
+            k = int(onp.argmax(hosts == hosts[k]))
         if P[k] < champion[0]:
             champion = (float(P[k]), mat, float(z[k]))
     return champion

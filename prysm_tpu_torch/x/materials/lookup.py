@@ -2,8 +2,7 @@
 
 Counterpart of ``prysm_tpu/x/materials/lookup.py``.  Resolution is a
 chain of small matchers tried in order; the first one that recognizes the
-spec wins.  The default catalog (refractiveindex.info) is not ported yet:
-resolving a glass name without a ``database`` raises NotImplementedError.
+spec wins.
 """
 from .core import ConstantMaterial
 
@@ -16,18 +15,9 @@ _SHARED_DB = []
 
 
 def _default_catalog():
-    """Process-wide cached ri.info catalog (fetched once).
-
-    The import stays lazy: that catalog downloads its database.
-    """
+    """Process-wide cached ri.info catalog (fetched once)."""
     if not _SHARED_DB:
-        try:
-            from .rii import RefractiveIndexCatalog
-        except ImportError:
-            raise NotImplementedError(
-                'the refractiveindex.info catalog (x/materials/rii.py) is not '
-                'ported yet; pass database= a catalog exposing '
-                'material_for_name(name)') from None
+        from .rii import RefractiveIndexCatalog
         _SHARED_DB.append(RefractiveIndexCatalog.from_database())
     return _SHARED_DB[0]
 

@@ -431,15 +431,58 @@ def test_synthesize_matches_jax(materials):
 # common materials and plotting
 # ---------------------------------------------------------------------------
 
-def test_common_materials_tables_and_resolution():
+# a refractiveindex.info database holding the VIS antireflection tokens' books and pages
+_AR_VIS_PAGES = {('MgF2', 'Dodge'): (1.38, 1.37), ('SiO2', 'Malitson'): (1.47, 1.45),
+                 ('Al2O3', 'Malitson'): (1.78, 1.76), ('TiO2', 'Sarkar'): (2.60, 2.45),
+                 ('TiO2', 'Devore'): (2.70, 2.50), ('Ta2O5', 'Gao'): (2.25, 2.12)}
+
+
+def _ar_vis_database(root):
+    lines = ['- SHELF: main', '  content:']
+    for book in dict.fromkeys(b for b, _ in _AR_VIS_PAGES):
+        lines += [f'    - BOOK: {book}', '      content:']
+        for (b, page), (n0, n1) in _AR_VIS_PAGES.items():
+            if b == book:
+                lines += [f'        - PAGE: {page}', f'          data: main/{b}/{page}.yml']
+                path = root / 'data' / 'main' / b / f'{page}.yml'
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_text('DATA:\n  - type: tabulated nk\n    data: |\n'
+                                f'      0.35 {n0} 0.001\n      0.75 {n1} 0.0\n')
+    (root / 'catalog-nk.yml').write_text('\n'.join(lines) + '\n')
+    return root
+
+
+def test_common_materials_tables_and_resolution(tmp_path, monkeypatch):
+    """The tables, and resolution through x/materials: a refractiveindex.info database given,
+    and the default catalog (its folder patched to the same tmp_path database; the download
+    patched to raise), both as the JAX package resolves them."""
+    import importlib
     from prysm_tpu.x.coatings import common_materials as jcm
+    from prysm_tpu.x.materials import RefractiveIndexCatalog as JRII, rii as jrii
     from prysm_tpu_torch.x.coatings import common_materials as tcm
+    from prysm_tpu_torch.x.materials import RefractiveIndexCatalog as TRII, rii as trii
     for table in ('BANDS', 'ANTIREFLECTION', 'BANDPASS', 'MIRROR', 'APPLICATIONS'):
         assert getattr(tcm, table) == getattr(jcm, table)
     assert tcm.names('ar', 'vis') == jcm.names('ar', 'vis')
-    # until the refractiveindex.info catalog is ported, resolving raises
-    with pytest.raises(NotImplementedError):
-        tcm.materials('AR', 'VIS')
+
+    db = _ar_vis_database(tmp_path)
+
+    def refuse(db_path):
+        raise AssertionError(f'the test reached the download of {db_path}')
+
+    for rii, pkg in ((trii, 'prysm_tpu_torch'), (jrii, 'prysm_tpu')):
+        monkeypatch.setattr(rii, '_fetch_database', refuse)
+        monkeypatch.setattr(rii, 'default_db_path', lambda: db)
+        monkeypatch.setattr(importlib.import_module(f'{pkg}.x.materials.lookup'), '_SHARED_DB', [])
+    w = np.linspace(0.4, 0.7, 4)
+    for mine, ref in ((tcm.materials('AR', 'VIS', database=TRII.from_database(db, download=False)),
+                       jcm.materials('AR', 'VIS', database=JRII.from_database(db, download=False))),
+                      (tcm.materials('AR', 'VIS'), jcm.materials('AR', 'VIS'))):
+        assert list(mine) == list(ref)
+        for tier in ref:
+            assert [m.page_info for m in mine[tier]] == [m.page_info for m in ref[tier]]
+            for m, r in zip(mine[tier], ref[tier]):
+                np.testing.assert_array_equal(m.nk(w), r.nk(w))
 
     class _Catalog:
         def material_for_name(self, name, page=None):

@@ -86,18 +86,39 @@ SLICE9_MODULES = ('x.optym', 'x.coatings') + tuple(f'x.optym.{m}' for m in (
                                 'monitoring', 'rugate', 'common_materials', 'plotting'))
 
 
+# the rest of x/materials and the six small instruments: the wavefront-control slice
+SLICE10_MODULES = tuple(f'x.materials.{m}' for m in (
+    'tabulated', 'charms', 'catalog', 'registry', 'transforms', 'infrared', 'agf', 'rii',
+    'fitted')) + tuple(f'x.{m}' for m in ('polarization', 'fibers', 'sri', 'pdi', 'dm',
+                                          'shack_hartmann'))
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
 
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
-                         + SLICE8_MODULES + SLICE9_MODULES)
+                         + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
     assert path in PORT_FILES
     importlib.import_module(f'prysm_tpu_torch.{module}'.removesuffix('.__init__'))
+
+
+def test_slice10_modules_match_the_jax_package():
+    """x/ and x/materials hold every module of the JAX package's but raytracing's; the
+    materials import neither yaml (rii reads it when called) nor torch's card."""
+    for sub in ('x', 'x/materials'):
+        want = {p.name for p in (ROOT / 'prysm_tpu' / sub).glob('*.py')}
+        got = {p.name for p in (ROOT / 'prysm_tpu_torch' / sub).glob('*.py')}
+        assert got == want, (sub, want ^ got)
+    code = ('import sys, prysm_tpu_torch.x.materials, prysm_tpu_torch.x.dm, '
+            'prysm_tpu_torch.x.polarization, prysm_tpu_torch.x.sri, prysm_tpu_torch.x.pdi, '
+            'prysm_tpu_torch.x.shack_hartmann; '
+            'assert "yaml" not in sys.modules and "jax" not in sys.modules')
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
 
 
 def _cfg6_on_cpu(monkeypatch):

@@ -95,10 +95,32 @@ def test_constant_material_and_tokens():
     assert (c.name, c.n(0.5), c.k(0.5), c.nk(0.5)) == (j.name, j.n(0.5), j.k(0.5), j.nk(0.5))
 
 
-def test_glass_names_need_a_catalog():
-    """The refractiveindex.info catalog is not ported: a bare name raises, never downloads."""
-    with pytest.raises(NotImplementedError, match='rii'):
-        tmat.lookup('N-BK7')
+def test_glass_names_need_a_catalog(tmp_path, monkeypatch):
+    """A bare name resolves through the default refractiveindex.info catalog, as in the JAX
+    package: here a one-page database in tmp_path stands in for its folder, and the download
+    is patched to raise, so no test reaches it.  A catalog given resolves through it."""
+    import importlib
+    from prysm_tpu.x.materials import rii as jrii
+    from prysm_tpu_torch.x.materials import rii as trii
+    page = tmp_path / 'data' / 'glass' / 'BK7.yml'
+    page.parent.mkdir(parents=True)
+    page.write_text('DATA:\n  - type: formula 2\n    wavelength_range: 0.3 2.5\n'
+                    '    coefficients: 0 1.03961212 0.00600069867 0.231792344 0.0200179144'
+                    ' 1.01046945 103.560653\n')
+    (tmp_path / 'catalog-nk.yml').write_text(
+        '- SHELF: glass\n  content:\n    - BOOK: N-BK7\n      content:\n'
+        '        - PAGE: SCHOTT\n          data: glass/BK7.yml\n')
+
+    def refuse(db_path):
+        raise AssertionError(f'the test reached the download of {db_path}')
+
+    for rii, pkg in ((trii, 'prysm_tpu_torch'), (jrii, 'prysm_tpu')):
+        monkeypatch.setattr(rii, '_fetch_database', refuse)
+        monkeypatch.setattr(rii, 'default_db_path', lambda: tmp_path)
+        monkeypatch.setattr(importlib.import_module(f'{pkg}.x.materials.lookup'), '_SHARED_DB', [])
+    got, want = tmat.lookup('N-BK7'), jmat.lookup('N-BK7')
+    np.testing.assert_array_equal(got.n(WVLS), want.n(WVLS))
+    assert got.page_info == want.page_info
 
     class Catalog:
         def material_for_name(self, name, **qualifiers):

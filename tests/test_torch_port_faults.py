@@ -12,7 +12,10 @@ float32, and take the inputs the JAX package takes:
 5. ``sum_of_2d_modes`` and its adjoint take a list of mode arrays;
 6. ``conf.set_matmul_precision`` exists and maps onto the TF32 switch,
    and the MDFT's TF32 scope restores the setting it found;
-7. (found beside them) ``mathops.cis`` takes Python numbers and numpy arrays.
+7. (found beside them) ``mathops.cis`` takes Python numbers and numpy arrays;
+9. needle synthesis takes the shallowest of the depths that only thicken a
+   layer of the candidate's own medium (P is flat there but for rounding),
+   so it grows the JAX package's design and not a rounding's choice.
 """
 import numpy as np
 import pytest
@@ -28,10 +31,14 @@ from prysm_tpu.polynomials import zernike as jzern
 from prysm_tpu.polynomials import fitting as jfit
 from prysm_tpu.propagation import Wavefront as JWavefront
 
+from prysm_tpu.x import coatings as jcoat
+
 from prysm_tpu_torch import coordinates, mathops, otf, psf
 from prysm_tpu_torch.conf import config
 from prysm_tpu_torch.polynomials import zernike, fitting
 from prysm_tpu_torch.propagation import Wavefront
+from prysm_tpu_torch.x import coatings as tcoat
+from prysm_tpu_torch.x.coatings import needle as tneedle
 
 torch.set_num_threads(2)
 
@@ -140,3 +147,27 @@ def test_fault7_cis_takes_python_numbers_and_numpy():
     got = mathops.cis(theta)
     assert got.dtype == torch.complex128
     assert _rel(got, jmath.cis(theta)) <= 1e-15
+
+
+def test_fault9_needle_takes_the_shallowest_depth_of_a_thickening():
+    """The second round of ``test_synthesize_matches_jax[two]``: a 1.38 needle
+    anywhere in the 1.38 layer at 0.196-0.207 um thickens it, so z[34] and
+    z[35] tie but for rounding; the parent took z[35] by one ulp where the JAX
+    package's rounding takes z[34], and the two syntheses parted there."""
+    n = [1.38, 2.05, 1.38, 2.05]
+    d = [0.09463160570770332, 0.10143196172733025, 0.010502237069625319,
+         0.02341294293364351]
+    z = np.linspace(0.0, sum(d), 40)
+
+    def merit(m):
+        return m.MeritFunction([m.Reflectance(np.linspace(0.45, 0.65, 7), pol='s',
+                                              target=0.0)])
+
+    P = tcoat.needle_function(tcoat.Stack(n, d, 1.52), merit(tcoat), 1.38, z).numpy()
+    Pj = np.asarray(jcoat.needle_function(jcoat.Stack(n, d, 1.52), merit(jcoat), 1.38,
+                                          jnp.asarray(z)))
+    assert np.abs(P - Pj).max() <= 1e-12 * np.abs(Pj).max()
+    assert abs(P[35] - P[34]) <= 1e-14 * abs(P[34]) and abs(Pj[35] - Pj[34]) <= 1e-14 * abs(Pj[34])
+    best = tneedle._best_insertion(tcoat.Stack(n, d, 1.52), merit(tcoat), [1.38, 2.05], z)
+    assert (best[1], best[2]) == (1.38, float(z[34]))
+    assert best[0] == pytest.approx(float(Pj.min()), rel=1e-12)
