@@ -14,7 +14,10 @@ import numpy as np
 import torch
 
 from ..conf import config, resolve_device
-from ..fttools import plan_mdft, plan_czt, plan_fftdft, _host_fftrange
+# MDFT, CZT, FFTDFT and fftrange are importable from here, as from the JAX
+# package's propagation.dft
+from ..fttools import (  # noqa: F401
+    MDFT, CZT, FFTDFT, fftrange, _host_fftrange, plan_mdft, plan_czt, plan_fftdft)
 
 __all__ = ['coordinates_for_focus', 'prepare_executor', 'unit_cell_focal_grid',
            'MultiResolutionExecutor', 'prepare_multiresolution',

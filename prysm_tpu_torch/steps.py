@@ -61,7 +61,9 @@ demosaicked frame; ``build_freeform_fit`` one that returns the sag, the
 fit and the sag families; ``build_image_chain`` one that returns the two
 blurred images; ``build_cfg6_trace`` one that returns the
 ``RayTraceResult`` of the merged bundle, ``build_cfg6_grad`` one that
-returns the spot loss and its curvature gradient, ``build_metrology`` one
+returns the spot loss and its curvature gradient, ``build_lens_analysis``
+one that returns cfg6's real-aimed Zernike fit, field PSFs and adjoint
+sensitivities, ``build_metrology`` one
 that returns the analysis's results, ``build_coating_design`` one that
 returns the two refinements and the synthesis, and
 ``build_phase_retrieval_lbfgsb`` one that returns the governed run's
@@ -111,7 +113,8 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'NEEDLE_SETTINGS', 'build_coating_design', 'RETRIEVAL_START', 'RETRIEVAL_BOUND',
            'RETRIEVAL_ITERS', 'build_phase_retrieval_lbfgsb', 'WFC_NMS', 'WFC_SEED', 'WFC_RMS',
            'WFC_ACT_RMS', 'WFC_NACT', 'WFC_SEP', 'WFC_ROT', 'SH_SAMPLES', 'SH_SPOT', 'wfc_state',
-           'sh_geometry', 'build_wavefront_control']
+           'sh_geometry', 'build_wavefront_control', 'LENS_NMS', 'LENS_SPHERES',
+           'LENS_THICKNESSES', 'build_lens_analysis']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -583,7 +586,7 @@ CFG6_FIELDS = (0.0, 1.0, 2.0)
 CFG6_EPD, CFG6_STOP, CFG6_RINGS = 20.0, 1, 64
 
 
-def cfg6_system():
+def cfg6_system(ray_aiming='paraxial'):
     """bench.py's cfg6 OpticalSystem, built through the port's LensData (host)."""
     from .x import materials as mat, raytracing as rt
     lens = rt.LensData()
@@ -592,7 +595,7 @@ def cfg6_system():
         lens.add(rt.Sphere(c), thickness=t, material=medium)
     return rt.OpticalSystem(lens, aperture=rt.ApertureSpec.epd(CFG6_EPD),
                             fields=list(CFG6_FIELDS), wavelengths=[WVL],
-                            stop_index=CFG6_STOP)
+                            stop_index=CFG6_STOP, ray_aiming=ray_aiming)
 
 
 class _Cfg6Trace:
@@ -1166,3 +1169,113 @@ def build_wavefront_control(N=1024, nact=WFC_NACT, fN=256, matmul_precision='hig
     """
     return _WavefrontControl(N, nact, fN, matmul_precision, fused=fused, pupil=pupil,
                              dm=dm, dtype=dtype, device=device)
+
+
+# the lens-analysis path: cfg6 with real aiming; its fitted wavefronts over the
+# wavefront-control step's 36 modes (n <= 7); the compiled indices of its three
+# spheres, and the surfaces each glass thickness moves (everything behind it)
+LENS_NMS = WFC_NMS
+LENS_SPHERES = (1, 2, 3)
+LENS_THICKNESSES = (((2, 1), (3, 1), (4, 1)), ((3, 1), (4, 1)))
+
+
+class _LensAnalysis:
+    """cfg6's lens analysis; calling it fits, renders, focuses and differentiates.
+
+    Planned once: the real-aimed system, its launches of every field
+    (aimed in float64 on the device, so every dtype traces the same bundle),
+    the fit's design matrices and exit pupil (``batch.plan_wavefront_fit``),
+    the pupil grid and cfg2's MDFT plan.
+    """
+
+    def __init__(self, sampling, N, fN, fused, dtype, device):
+        from .x.raytracing import Sampling
+        from .x.raytracing.adjoint import (OplSpreadHead, RmsSpotHead, seed_curvature,
+                                           seed_despace)
+        from .x.raytracing.batch import plan_wavefront_fit
+        self.dtype = config.precision if dtype is None else dtype
+        self.device = resolve_device(device)
+        self.sampling = Sampling.hex(CFG6_RINGS) if sampling is None else sampling
+        self.system = cfg6_system(ray_aiming='real')
+        self.fields = list(self.system.fields)
+        self.pupil = make_pupil(N, LENS_NMS, (0.0,) * len(LENS_NMS), dtype=self.dtype,
+                                device=self.device)
+        self.x, self.y = make_xy_grid(N, diameter=DIAMETER, dtype=self.dtype, device=self.device)
+        self.modes = None if fused else zernike_nm_seq(LENS_NMS, self.pupil.r, self.pupil.t)
+        self.plan = make_cfg2_plan(self.pupil, fN)
+        with precision_as(torch.float64), device_as(self.device):
+            self.fit_plan = plan_wavefront_fit(self.system, LENS_NMS, WVL, self.fields,
+                                               self.sampling)
+        self.P = self.fit_plan.P.reshape(-1, 3)
+        self.S = self.fit_plan.S.reshape(-1, 3)
+        self.seeds = ([seed_curvature(j, name=f'c{j}') for j in LENS_SPHERES]
+                      + [seed_despace(moved, name=f't{k + 1}')
+                         for k, moved in enumerate(LENS_THICKNESSES)])
+        self.heads = [RmsSpotHead(), OplSpreadHead()]
+
+    @contextmanager
+    def configured(self):
+        """A context with ``config.precision`` and ``config.device`` set to this plan's."""
+        with precision_as(self.dtype), device_as(self.device):
+            yield
+
+    def fit(self):
+        """(coefs (1, F, 36), residual RMS (1, F)) in mm: ``device_wavefront_fit``'s
+        tensor half on the planned launches."""
+        from .x.raytracing.batch import fit_planned
+        with self.configured():
+            c, r = fit_planned(self.system.to_surfaces(), self.fit_plan, self.device)
+        return c[None], r[None]
+
+    def opd(self, coefs):
+        """(F, N, N) OPD in nm over the unit pupil from (F, 36) coefficients in mm."""
+        c = (coefs * 1e6).to(self.dtype)
+        if self.modes is None:
+            return torch.stack([zernike_sum(ck, LENS_NMS, self.x, self.y) for ck in c])
+        return torch.stack([sum_of_2d_modes(self.modes, ck) for ck in c])
+
+    def psfs(self, opd):
+        """(F, fN, fN) focal intensities through the MDFT plan."""
+        return torch.stack([Wavefront.from_amp_and_phase(self.pupil.amp, o, WVL, self.pupil.dx)
+                            .focus_dft(self.plan).intensity.data for o in opd])
+
+    def sensitivities(self):
+        """(grads (2, 5), values): d(RMS spot, OPL spread)/d(c1, c2, c3, t1, t2)."""
+        from .x.raytracing.adjoint import adjoint_gradient_multi
+        with self.configured():
+            return adjoint_gradient_multi(self.system, self.P, self.S, WVL, self.seeds,
+                                          self.heads)
+
+    @torch.no_grad()
+    def __call__(self):
+        """(coefs, rms, psfs, grads, head values); see ``build_lens_analysis``."""
+        coefs, rms = self.fit()
+        psfs = self.psfs(self.opd(coefs[0]))
+        with torch.enable_grad():
+            grads, values = self.sensitivities()
+        return coefs, rms, psfs, grads, values
+
+
+def build_lens_analysis(sampling=None, N=1024, fN=256, fused=True, dtype=None, device=None):
+    """A lens designer's analysis of cfg6 with real ray aiming.
+
+    ``cfg6_system(ray_aiming='real')``: 3 fields x ``sampling`` (default
+    ``Sampling.hex(64)``, 37,443 rays) launched onto the real stop, planned
+    once with the exit pupil (``batch.plan_wavefront_fit``, the host half of
+    ``device_wavefront_fit``).  A call fits each field's wavefront by its
+    tensor half (``batch.fit_planned``: one merged trace, the EIC closing
+    through ``system.exit_pupil``, the masked normal equations over
+    ``LENS_NMS``): coefficients (1, 3, 36) and residual RMS
+    (1, 3) in mm of OPD per unit-RMS Zernike mode over each field's launch
+    radius, as the JAX package's ``wavefront_zernike_fit`` gives them with
+    ``output='length'``.  Each field's fit is rendered as OPD in nm (1e6 x
+    mm) on an N^2 unit-disk pupil through ``polynomials.zernike_sum`` (the
+    fused forward kernel, one launch a field; ``fused=False``: the f64 mode
+    stack), focused by cfg2's MDFT plan to fN^2 (``make_cfg2_plan``, TF32
+    products on the card) into three PSFs.  Last, the gradients of the RMS
+    spot radius about the centroid and the OPL spread of the merged bundle
+    with respect to the three curvatures and the two glass thicknesses,
+    one reverse pass per head (``adjoint.adjoint_gradient_multi``).
+    Returns a callable giving (coefs, rms, psfs, grads (2, 5), values).
+    """
+    return _LensAnalysis(sampling, N, fN, fused, dtype, device)

@@ -4,14 +4,17 @@ Counterpart of ``prysm_tpu/x/raytracing/__init__.py`` for the modules
 ported so far: the trace kernel (raytrace / refract / reflect / status),
 surface shapes, apertures, intersections, OPL modifiers, ray generation,
 paraxial first-order analysis, the lens-data editor and OpticalSystem,
-launch and aiming, the spot statistics of ``opt``, and the batched
-merged trace.  A bundle traces as plain elementwise torch on the device
-of its rays and differentiates with autograd.
+launch and aiming, the spot statistics of ``opt``, the batched merged
+trace, and the analysis cluster: ``listings``, ``sample_rx``, ``auto``,
+``aberrations`` (Seidel sums), ``parabasal`` first order, ``analysis``
+(exit pupil, wavefront, fans, spots, distortion, colour, full-field
+maps), forward-mode ``_diff_raytrace`` and reverse-mode ``adjoint``.  A
+bundle traces as plain elementwise torch on the device of its rays and
+differentiates with autograd or ``torch.func.jvp``.
 
-Not ported yet (ROADMAP Queue 1 item 21): ``analysis``, ``aberrations``,
-``parabasal``, ``listings``, ``field``, ``wavefront_differential``,
-``design``, ``tolerance``, ``auto``, ``io``, ``plotting``, ``sample_rx``
-and ``adjoint``; their names are not exported here.
+Not ported yet: ``field``, ``wavefront_differential``, ``design`` and
+``tolerance`` (ROADMAP Queue 1 item 21b), ``io`` and ``plotting`` (item
+21c); their names are not exported here.
 """
 from .spencer_and_murty import (  # NOQA
     DEFAULT_TOL_SAG,
@@ -140,6 +143,46 @@ from .batch import (  # NOQA
     merged_trace,
     unmerge,
 )
+from .listings import (  # NOQA
+    aperture_table,
+    decenter_table,
+    surface_table,
+)
+from .parabasal import (  # NOQA
+    ParabasalFirstOrder,
+    first_order,
+    parabasal_foci,
+)
+from .auto import RCPrescription, RitcheyChretien  # NOQA
+from .aberrations import SeidelResult, seidel_aberrations, paraxial_trace  # NOQA
+from .analysis import (  # NOQA
+    DistortionResult,
+    FieldCurvatureResult,
+    FullFieldGrid,
+    OPDFanGrid,
+    RayFanGrid,
+    SpotGrid,
+    TraceRecord,
+    chromatic_focal_shift,
+    distortion,
+    field_curvature,
+    field_sweep,
+    full_field,
+    iter_trace_grid,
+    lateral_color,
+    opd_fans,
+    ray_aberration_fans,
+    resolve_exit_pupil,
+    spot_diagrams,
+    spot_geometric_radius,
+    spot_positions,
+    spot_rms_radius,
+    transverse_ray_aberration,
+    wavefront,
+    wavefront_zernike_fit,
+)
+from . import sample_rx  # NOQA
+from . import adjoint  # NOQA
 
 # Fraunhofer spectral lines, µm
 FRAUNHOFER_LINES_UM = {
@@ -183,4 +226,15 @@ __all__ = [
     'STATUS_MISS', 'STATUS_TIR', 'STATUS_EVANESCENT',
     'DEFAULT_TOL_SAG', 'SURFACE_INTERSECTION_DEFAULT_MAXITER',
     'device_wavefront_fit', 'fit_from_trace', 'merged_trace', 'unmerge',
+    'surface_table', 'aperture_table', 'decenter_table',
+    'first_order', 'parabasal_foci', 'ParabasalFirstOrder',
+    'TraceRecord', 'iter_trace_grid', 'field_sweep',
+    'transverse_ray_aberration', 'wavefront', 'wavefront_zernike_fit',
+    'distortion', 'field_curvature', 'chromatic_focal_shift', 'lateral_color',
+    'full_field', 'ray_aberration_fans', 'opd_fans', 'spot_diagrams',
+    'spot_rms_radius', 'spot_geometric_radius', 'spot_positions',
+    'resolve_exit_pupil', 'DistortionResult', 'FieldCurvatureResult',
+    'RayFanGrid', 'OPDFanGrid', 'SpotGrid', 'FullFieldGrid',
+    'RitcheyChretien', 'RCPrescription', 'SeidelResult',
+    'seidel_aberrations', 'paraxial_trace', 'sample_rx', 'adjoint',
 ]

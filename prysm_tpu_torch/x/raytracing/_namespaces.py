@@ -1,18 +1,17 @@
 """Inner verb namespaces for OpticalSystem (opt / solve / analysis / ...).
 
 Counterpart of ``prysm_tpu/x/raytracing/_namespaces.py``.  Every verb of
-the JAX package is here.  A verb whose module is not ported yet
-(``design``, ``analysis``, ``plotting``, ``tolerance``,
-``wavefront_differential``, ``adjoint``, ``parabasal``, ``listings``)
-raises NotImplementedError naming the module and its ROADMAP item; it
-never falls back to another computation.
+the JAX package is here.  A verb whose module is not ported yet (``design``,
+``tolerance`` and ``wavefront_differential``: ROADMAP Queue 1 item 21b;
+``plotting``: item 21c) raises NotImplementedError naming the module and
+its ROADMAP item; it never falls back to another computation.
 """
 
-# ROADMAP.md Queue 1 item that ports the rest of x/raytracing/
-REST_OF_RAYTRACING_ITEM = 21
+# ROADMAP.md Queue 1 items that port the rest of x/raytracing/
+DESIGN_ITEM, PLOTTING_ITEM = '21b', '21c'
 
 
-def not_ported(name, item=REST_OF_RAYTRACING_ITEM):
+def not_ported(name, item):
     """Raise NotImplementedError for ``name`` of x/raytracing/, not ported yet."""
     raise NotImplementedError(
         f'x/raytracing/{name.split(".")[0]}.py ({name}) is not ported to '
@@ -79,12 +78,12 @@ class _OptNamespace:
     def problem(self, goal='spot', *, sampling=None, fields=None,
                 wavelengths=None, constraints=None):
         """Assemble a design.Problem over this system's free vector."""
-        not_ported('design.build_problem')
+        not_ported('design.build_problem', DESIGN_ITEM)
 
     def optimize(self, goal='spot', *, sampling=None, fields=None,
                  wavelengths=None, constraints=None, **solve_kwargs):
         """Build and solve an optimization problem in one shot."""
-        not_ported('design.build_problem')
+        not_ported('design.build_problem', DESIGN_ITEM)
 
 
 class _SolveNamespace:
@@ -136,9 +135,19 @@ class _AnalysisNamespace:
         return self._sys.exit_pupil(wavelength, field=field, **kwargs)
 
     def __getattr__(self, name):
-        if name.startswith('__'):
-            raise AttributeError(name)
-        not_ported(f'analysis.{name}')
+        from . import analysis as _analysis
+        fn = getattr(_analysis, name, None)
+        if fn is None or not callable(fn):
+            raise NotImplementedError(
+                f'analysis verb {name!r} is not available yet')
+        sys = self._sys
+
+        def bound(*args, **kwargs):
+            return fn(sys, *args, **kwargs)
+
+        bound.__name__ = name
+        bound.__doc__ = fn.__doc__
+        return bound
 
 
 class _PlotNamespace:
@@ -151,50 +160,50 @@ class _PlotNamespace:
 
     def layout_2d(self, **kwargs):
         """2D system layout with per-field ray fans."""
-        not_ported('plotting.layout')
+        not_ported('plotting.layout', PLOTTING_ITEM)
 
     def spots(self, *, fields=None, wavelengths=None, sampling=None,
               epd=None, reference='centroid', **kwargs):
         """Spot-diagram grid over fields and wavelengths."""
-        not_ported('plotting.plot_spots')
+        not_ported('plotting.plot_spots', PLOTTING_ITEM)
 
     def ray_fans(self, *, fields=None, wavelengths=None, nrays=21,
                  epd=None, distribution='uniform', reference='chief',
                  **kwargs):
         """Transverse ray-aberration fan grid."""
-        not_ported('plotting.plot_ray_fans')
+        not_ported('plotting.plot_ray_fans', PLOTTING_ITEM)
 
     def opd_fans(self, *, fields=None, wavelengths=None, nrays=21,
                  epd=None, distribution='uniform', stop_index=None,
                  output='waves', **kwargs):
         """OPD fan grid."""
-        not_ported('plotting.plot_opd_fans')
+        not_ported('plotting.plot_opd_fans', PLOTTING_ITEM)
 
     def field_curvature(self, *, fields=None, wavelength=None,
                         samples=101, **kwargs):
         """S/T field-curvature plot."""
-        not_ported('plotting.plot_field_curvature')
+        not_ported('plotting.plot_field_curvature', PLOTTING_ITEM)
 
     def distortion(self, *, fields=None, wavelength=None, epd=None,
                    samples=101, distortion_type='f-tan', **kwargs):
         """Percent-distortion plot."""
-        not_ported('plotting.plot_distortion')
+        not_ported('plotting.plot_distortion', PLOTTING_ITEM)
 
     def chromatic_focal_shift(self, *, wavelengths=None, samples=101,
                               focus='best', epd=None, **kwargs):
         """Chromatic focal-shift plot."""
-        not_ported('plotting.plot_chromatic_focal_shift')
+        not_ported('plotting.plot_chromatic_focal_shift', PLOTTING_ITEM)
 
     def lateral_color(self, *, fields=None, wavelengths=None, epd=None,
                       samples=101, **kwargs):
         """Lateral-color plot."""
-        not_ported('plotting.plot_lateral_color')
+        not_ported('plotting.plot_lateral_color', PLOTTING_ITEM)
 
     def full_field(self, *, metric='rms spot', samples=15, max_field=None,
                    wavelengths=None, sampling=None, epd=None,
                    stop_index=None, **kwargs):
         """Full-field metric map."""
-        not_ported('plotting.plot_full_field')
+        not_ported('plotting.plot_full_field', PLOTTING_ITEM)
 
 
 class _TolNamespace:
@@ -207,19 +216,20 @@ class _TolNamespace:
 
     def sensitivity(self, perturbations, merit, *, step=None):
         """Centered finite-difference scalar-merit sensitivity table."""
-        not_ported('tolerance.sensitivity_table')
+        not_ported('tolerance.sensitivity_table', DESIGN_ITEM)
 
     def monte_carlo(self, perturbations, merit, n_trials, **kwargs):
         """Monte Carlo sampling of a scalar merit over perturbations."""
-        not_ported('tolerance.monte_carlo')
+        not_ported('tolerance.monte_carlo', DESIGN_ITEM)
 
     def wavefront(self, perturbations, P, S, wavelength=None, **kwargs):
         """Wavefront differential (Code V TOR) for one launch bundle."""
-        not_ported('wavefront_differential.wavefront_differential')
+        not_ported('wavefront_differential.wavefront_differential', DESIGN_ITEM)
 
     def inverse_sensitivity(self, J, budget, **kwargs):
         """Per-tolerance steps that fit a sensitivity Jacobian to a budget."""
-        not_ported('adjoint.tolerance_analysis.inverse_sensitivity')
+        from .adjoint.tolerance_analysis import inverse_sensitivity
+        return inverse_sensitivity(J, budget, **kwargs)
 
     def adjoint_sensitivity(self, perturbations, heads, P, S,
                             wavelength=None, **kwargs):
@@ -230,4 +240,9 @@ class _TolNamespace:
         head; feed the result's .jacobian to inverse_sensitivity /
         rss_prediction for budgeting.
         """
-        not_ported('adjoint.tolerance_analysis.multi_objective_sensitivity')
+        from .adjoint.seeds import seed_from_perturbation
+        from .adjoint.tolerance_analysis import multi_objective_sensitivity
+        seeds = [seed_from_perturbation(p) for p in perturbations]
+        return multi_objective_sensitivity(
+            self._sys, P, S, self._sys.wavelength(wavelength), seeds,
+            heads, **kwargs)

@@ -12,10 +12,11 @@ Counterpart of ``prysm_tpu/x/raytracing/batch.py``:
   the fitted coefficients coming back.
 
 The bundles go to ``config.device`` (the card unless the CPU is asked
-for) once per wavelength.  ``device_wavefront_fit`` on an OpticalSystem
-needs ``system.exit_pupil``, whose ``analysis`` module is not ported yet:
-it raises NotImplementedError there (ROADMAP Queue 1 item 21).
+for) once per wavelength.  On an OpticalSystem the EIC closing's sphere
+passes through ``system.exit_pupil`` (``analysis.resolve_exit_pupil``).
 """
+from collections import namedtuple
+
 import numpy as np
 import torch
 
@@ -156,6 +157,52 @@ def fit_from_trace(P_end, S_end, OPL, alive, A, ramps, chief_onehot,
     return coefs, rms
 
 
+class WavefrontFitPlan(namedtuple('WavefrontFitPlan', 'wvl P S A ramps chiefs P_xp n_image')):
+    """The host half of ``device_wavefront_fit`` for one wavelength.
+
+    The launch bundles P, S (F, N, 3), the Zernike design matrices A
+    (F, N, K), the field-tilt ramps (F, N), the chief indices (F,), the
+    exit-pupil point (or None) and the image-space index, all host float64.
+    """
+
+
+def plan_wavefront_fit(system, nms, wvl, fields, sampling, *, epd=None, norm=True,
+                       normalization_radius=None):
+    """Plan one wavelength of ``device_wavefront_fit`` on the host.
+
+    Launches every field (real aiming when the system asks for it), builds
+    the design matrices and ramps, and resolves the exit pupil.
+    """
+    P, S = _host_launches(system, fields, wvl, sampling, epd)
+    chiefs = _chief_indices(P)
+    ramps = _tilt_ramps(fields, P, chiefs)
+    A, _ = _design_matrices(P, chiefs, nms, norm, normalization_radius)
+    xp = system.exit_pupil(wvl) if hasattr(system, 'exit_pupil') else None
+    P_xp = None if xp is None else np.asarray(xp, dtype=_PREC)
+    return WavefrontFitPlan(wvl, P, S, A, ramps, chiefs, P_xp,
+                            float(trace_context(system, wvl).n_image))
+
+
+def fit_planned(surfaces, plan, device=None):
+    """(coefs (F, K), rms (F,)) of one planned wavelength: one merged trace of
+    the plan's bundles on ``device``, then ``fit_from_trace``."""
+    dev = resolve_device(device)
+    F, N = plan.P.shape[:2]
+    chief_onehot = np.zeros((F, N), dtype=_PREC)
+    chief_onehot[np.arange(F), plan.chiefs] = 1.0
+    Pt, St, At, rt, ct = (torch.as_tensor(a, device=dev)
+                          for a in (plan.P, plan.S, plan.A, plan.ramps, chief_onehot))
+    res = raytrace(surfaces, Pt.reshape(F * N, 3), St.reshape(F * N, 3), plan.wvl)
+    return fit_from_trace(
+        res.P[-1].reshape(F, N, 3), res.S[-1].reshape(F, N, 3),
+        res.OPL.sum(dim=0).reshape(F, N),
+        (res.status.imag == 0).reshape(F, N),
+        At.to(res.P.dtype), rt.to(res.P.dtype), ct.to(res.P.dtype),
+        None if plan.P_xp is None
+        else torch.as_tensor(plan.P_xp, dtype=res.P.dtype, device=dev),
+        plan.n_image)
+
+
 def device_wavefront_fit(system, nms, fields=None, wavelengths=None,
                          sampling=None, *, epd=None, norm=True,
                          normalization_radius=None, device=None):
@@ -166,48 +213,28 @@ def device_wavefront_fit(system, nms, fields=None, wavelengths=None,
     exit pupil), with the launch-plane field-tilt ramp applied and the
     masked Zernike normal equations solved.  Dead rays weight zero in the
     fit; there are no host reads between launch and the coefficients.
+    The host half is ``plan_wavefront_fit``, the tensor half
+    ``fit_planned``.
 
     Returns (coefs, rms) with shapes (W, F, K) and (W, F), on ``device``
     (default ``config.device``).  For an OpticalSystem the exit pupil comes
-    from ``system.exit_pupil``, which raises NotImplementedError until
-    ``analysis`` is ported; a bare surface sequence closes on the
+    from ``system.exit_pupil``; a bare surface sequence closes on the
     telecentric (kappa = 0) limit.
     """
     fields = _resolve_fields(system, fields)
     wavelengths = _resolve_wavelengths(system, wavelengths)
     sampling = Sampling.hex(nrings=6) if sampling is None else sampling
     surfaces = compiled_surfaces(system)
-    dev = resolve_device(device)
 
     coef_out, rms_out = [], []
     for wvl in wavelengths:
-        wvl = float(wvl)
-        P, S = _host_launches(system, fields, wvl, sampling, epd)
-        F, N = P.shape[:2]
-        chiefs = _chief_indices(P)
-        ramps = _tilt_ramps(fields, P, chiefs)
-        A, _ = _design_matrices(P, chiefs, nms, norm, normalization_radius)
-        ctx = trace_context(system, wvl)
-        xp = system.exit_pupil(wvl) if hasattr(system, 'exit_pupil') else None
-        P_xp = None if xp is None else np.asarray(xp, dtype=_PREC)
-        n_image = float(ctx.n_image)
-
-        chief_onehot = np.zeros((F, N), dtype=_PREC)
-        chief_onehot[np.arange(F), chiefs] = 1.0
-
-        Pt, St, At, rt, ct = (torch.as_tensor(a, device=dev)
-                              for a in (P, S, A, ramps, chief_onehot))
-        res = raytrace(surfaces, Pt.reshape(F * N, 3), St.reshape(F * N, 3), wvl)
-        c, r = fit_from_trace(
-            res.P[-1].reshape(F, N, 3), res.S[-1].reshape(F, N, 3),
-            res.OPL.sum(dim=0).reshape(F, N),
-            (res.status.imag == 0).reshape(F, N),
-            At.to(res.P.dtype), rt.to(res.P.dtype), ct.to(res.P.dtype),
-            None if P_xp is None else torch.as_tensor(P_xp, dtype=res.P.dtype, device=dev),
-            n_image)
+        plan = plan_wavefront_fit(system, nms, float(wvl), fields, sampling, epd=epd, norm=norm,
+                                  normalization_radius=normalization_radius)
+        c, r = fit_planned(surfaces, plan, device)
         coef_out.append(c)
         rms_out.append(r)
     return torch.stack(coef_out), torch.stack(rms_out)
 
 
-__all__ = ['device_wavefront_fit', 'fit_from_trace', 'merged_trace', 'unmerge']
+__all__ = ['device_wavefront_fit', 'fit_from_trace', 'fit_planned', 'merged_trace',
+           'plan_wavefront_fit', 'unmerge', 'WavefrontFitPlan']

@@ -5,9 +5,8 @@ pupil sampling patterns, and the launch() entry that seeds bundles onto the
 entrance pupil and (under real aiming) drives them onto the stop with an
 adaptive field-continuation ladder.  Host-side numpy orchestration; the
 traces it drives run the tensor kernel on ``config.device`` and are read
-back with ``to_host``.  The continuation ladder's field-dependent
-entrance pupil needs ``parabasal``, which is not ported yet: that route
-raises NotImplementedError rather than fall back to the paraxial pupil.
+back with ``to_host``; so do the continuation ladder's parabasal chief
+traces.
 
 Design notes: pupil patterns are realized through a builder registry on
 :class:`Sampling` (one closure per pattern kind); the real-aiming homotopy
@@ -24,7 +23,6 @@ from . import raygen
 from ._resolve import compiled_surfaces, trace_context
 from .opt import aim_rays, declipped
 from .paraxial import NonAxialSystemError, entrance_pupil_z
-from ._namespaces import not_ported
 from .spencer_and_murty import (raytrace, to_host, transform_to_local_coords,
                                 valid_mask)
 
@@ -480,15 +478,47 @@ def _scaled_field(field, frac):
             vignetting=field.vignetting)
 
 
-def _parabasal_ep_z(system, field, wvl_um):
-    """Field-dependent entrance-pupil z from ``parabasal.first_order``.
+class _PinnedAimingProxy:
+    """Delegating system view whose ray_aiming is pinned to 'paraxial'.
 
-    The JAX package falls back to the paraxial pupil when ``parabasal``
-    cannot be imported.  ``parabasal`` is not ported yet, so that fallback
-    would silently change every real-aimed launch that reaches the
-    continuation ladder: this raises NotImplementedError instead.
+    Breaks the recursion where the continuation ladder's parabasal EP
+    seed would launch an aimed chief that re-enters the ladder.
     """
-    not_ported('parabasal.first_order')
+
+    ray_aiming = 'paraxial'
+
+    def __init__(self, system):
+        self._inner = system
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __getitem__(self, key):
+        return self._inner[key]
+
+    def __len__(self):
+        return len(self._inner)
+
+    def __iter__(self):
+        return iter(self._inner)
+
+
+def _parabasal_ep_z(system, field, wvl_um):
+    """Field-dependent entrance-pupil z, with paraxial fallback.
+
+    As the JAX package: where ``first_order`` cannot place the pupil
+    (ValueError, IndexError, ArithmeticError, LinAlgError) or places none,
+    the paraxial entrance pupil is taken.
+    """
+    from .parabasal import first_order
+    try:
+        ep = first_order(_PinnedAimingProxy(system), field, wvl_um).ep_z
+    except (ValueError, IndexError, ArithmeticError,
+            onp.linalg.LinAlgError):
+        ep = None
+    if ep is None:
+        return _entrance_pupil_z(system, wvl_um)
+    return float(onp.mean(ep)) if hasattr(ep, '__len__') else float(ep)
 
 
 def _warm_start_bundle(P, S, warmP, warmS, finite_conjugate, good):

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from ..materials import air, MIRROR
-from ._namespaces import not_ported
 from .aperture import as_aperture
 from .surfaces import Plane, Shape, Surface, _map_stype
 from .paraxial import paraxial_image_distance
@@ -1030,16 +1029,20 @@ class LensData:
 
     # -- listings --
     def list_surfaces(self, *, stop_index=None, unit=None):
-        """Lens-data-editor surface table (``listings``: not ported yet)."""
-        not_ported('listings.surface_table')
+        """Lens-data-editor surface table."""
+        from .listings import surface_table
+        return surface_table(self, stop_index=stop_index,
+                             unit=unit)
 
     def list_apertures(self):
-        """Per-surface clear-aperture table (``listings``: not ported yet)."""
-        not_ported('listings.aperture_table')
+        """Per-surface clear-aperture table."""
+        from .listings import aperture_table
+        return aperture_table(self)
 
     def list_decenters(self):
-        """Coordinate-break decenter / tilt table (``listings``: not ported yet)."""
-        not_ported('listings.decenter_table')
+        """Coordinate-break decenter / tilt table."""
+        from .listings import decenter_table
+        return decenter_table(self)
 
     def copy(self):
         """A structural copy with cloned rows."""

@@ -11,9 +11,7 @@ Counterpart of ``prysm_tpu/x/raytracing/system.py``.  Design notes:
   constructor reads as a checklist.
 
 This layer is host-side editor code; tensor work happens in the trace
-kernel and the batched launch/analysis paths.  ``first_order`` (which
-needs ``parabasal``) and ``exit_pupil`` (which needs ``analysis``) raise
-NotImplementedError until those modules are ported.
+kernel and the batched launch/analysis paths.
 """
 import warnings
 from collections import namedtuple
@@ -29,8 +27,7 @@ from .lensdata import DesignState, LensData
 from ._cache import structural_key, StateCache
 from ._meta import object_space_index as _n_object_space
 from ._namespaces import (_AnalysisNamespace, _OptNamespace,
-                          _PlotNamespace, _SolveNamespace, _TolNamespace,
-                          not_ported)
+                          _PlotNamespace, _SolveNamespace, _TolNamespace)
 
 # aperture-mode tags
 EPD = 'EPD'
@@ -327,6 +324,12 @@ def _checked_aiming(ray_aiming):
 
 # cache-key snapshot helpers ------------------------------------------------
 
+def _vec_key(value):
+    if value is None:
+        return value
+    return tuple(np.asarray(to_host(value), dtype=np.float64).ravel().tolist())
+
+
 def _fkey(field):
     if field is None:
         return field
@@ -557,11 +560,16 @@ class OpticalSystem:
 
     def first_order(self, field=0, wavelength=None, *,
                     epd=None, stop_index=None, force_sym=False):
-        """Parabasal first-order properties about a chief ray, cached.
-
-        ``parabasal`` is not ported yet: this raises NotImplementedError.
-        """
-        not_ported('parabasal.first_order')
+        """Parabasal first-order properties about a chief ray, cached."""
+        from .parabasal import _resolve_field, first_order
+        wvl = self.wavelength(wavelength)  # key on the resolved micron value
+        stop = self._stop_or_default(stop_index)
+        return self._memo(
+            ('fo', self.lens._version,
+             _fkey(_resolve_field(self, field)), float(wvl), epd,
+             stop, bool(force_sym)),
+            lambda: first_order(self, field=field, wavelength=wvl, epd=epd,
+                                stop_index=stop_index, force_sym=force_sym))
 
     def _ynu_first_order(self, wvl=None, *, epd=None,
                          stop_index=None):
@@ -589,12 +597,19 @@ class OpticalSystem:
 
     def exit_pupil(self, wvl=None, field=None, *, stop_index=None,
                    epd=None, axis_point=None, axis_dir=None):
-        """Resolved exit-pupil reference point P_xp, cached.
-
-        ``analysis.resolve_exit_pupil`` is not ported yet: this raises
-        NotImplementedError.
-        """
-        not_ported('analysis.resolve_exit_pupil')
+        """Resolved exit-pupil reference point P_xp, cached."""
+        from .analysis import resolve_exit_pupil
+        wvl = self.wavelength(wvl)  # resolved before keying
+        stop = self._stop_or_default(stop_index)
+        return self._memo(
+            ('exit_pupil', self.lens._version, float(wvl),
+             _fkey(field), stop, None if epd is None else float(epd),
+             _vec_key(axis_point), _vec_key(axis_dir),
+             _apkey(self.aperture), self.ray_aiming),
+            lambda: resolve_exit_pupil(
+                self, wvl, stop_index=stop, epd=epd, field=field,
+                axis_point=axis_point,
+                axis_dir=axis_dir))
 
     # -- grid caching for plot verbs --
     def _fingerprint(self):

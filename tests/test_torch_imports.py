@@ -93,13 +93,21 @@ SLICE10_MODULES = tuple(f'x.materials.{m}' for m in (
                                           'shack_hartmann'))
 
 
+# the analysis cluster of x/raytracing: the lens-analysis slice
+SLICE11_MODULES = tuple(f'x.raytracing.{m}' for m in (
+    'listings', 'sample_rx', 'sensitivity', 'auto', 'aberrations', '_diff_raytrace',
+    'parabasal', 'analysis', 'adjoint', 'adjoint.seeds', 'adjoint.primitives',
+    'adjoint.engine', 'adjoint.tolerance_analysis'))
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
 
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
-                         + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES)
+                         + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES
+                         + SLICE11_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
@@ -128,40 +136,33 @@ def _cfg6_on_cpu(monkeypatch):
     return steps.cfg6_system()
 
 
-def test_parabasal_route_raises_and_does_not_fall_back(monkeypatch):
-    """The JAX package's ``_parabasal_ep_z`` falls back to the paraxial pupil
-    when ``parabasal`` cannot be imported; the port has no ``parabasal`` yet,
-    so that route raises instead of silently changing the launch."""
-    import importlib
-    tlaunch = importlib.import_module('prysm_tpu_torch.x.raytracing.launch')
+@pytest.mark.parametrize('verb, item', [
+    (lambda s: s.plot.spots(), '21c'), (lambda s: s.opt.problem(), '21b'),
+    (lambda s: s.tol.monte_carlo([], None, 3), '21b'),
+    (lambda s: s.tol.wavefront([], None, None), '21b')])
+def test_unported_verbs_raise_naming_the_roadmap_item(monkeypatch, verb, item):
+    """The verbs of ``design``, ``tolerance``, ``wavefront_differential`` (item
+    21b) and ``plotting`` (21c) raise, naming their item."""
     system = _cfg6_on_cpu(monkeypatch)
-    assert not (ROOT / 'prysm_tpu_torch/x/raytracing/parabasal.py').exists()
-    with pytest.raises(NotImplementedError, match='parabasal.*item 21'):
-        tlaunch._parabasal_ep_z(system, system.field(2), 0.55)
-    # real aiming falls into the continuation ladder when its bundle does not
-    # land (here a ray so oblique that it misses the stop sphere wherever it
-    # starts), and the ladder reaches it
-    def no_rung(*args, **kwargs):
-        raise AssertionError('no rung may be built without a field-dependent pupil')
-
-    with pytest.raises(NotImplementedError, match='parabasal'):
-        tlaunch._aim_to_stop_with_ladder(
-            np.asarray([[0.0, 0.0, -10.0]]), np.asarray([[0.0, 0.999, 0.0447]]),
-            np.zeros((1, 2)), no_rung,
-            system.field(2), system, 1, 0.55, False)
-    with pytest.raises(NotImplementedError, match='parabasal'):
-        system.first_order(field=1)
-
-
-@pytest.mark.parametrize('verb', [
-    lambda s: s.exit_pupil(), lambda s: s.list_surfaces(), lambda s: s.lens.list_apertures(),
-    lambda s: s.analysis.spot_diagrams(), lambda s: s.plot.spots(),
-    lambda s: s.opt.problem(), lambda s: s.tol.monte_carlo([], None, 3),
-    lambda s: s.tol.wavefront([], None, None)])
-def test_unported_verbs_raise_naming_the_roadmap_item(monkeypatch, verb):
-    system = _cfg6_on_cpu(monkeypatch)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 item 21'):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md Queue 1 item {item}$'):
         verb(system)
+
+
+def test_slice11_modules_match_the_jax_package():
+    """x/raytracing holds the JAX package's analysis cluster; what it lacks is items
+    21b (design, tolerancing) and 21c (IO, plotting), and tolerance_analysis
+    imports pandas only when asked for a DataFrame."""
+    want = {p.relative_to(ROOT / 'prysm_tpu').as_posix()
+            for p in (ROOT / 'prysm_tpu' / 'x' / 'raytracing').rglob('*.py')}
+    got = {p.relative_to(ROOT / 'prysm_tpu_torch').as_posix()
+           for p in (ROOT / 'prysm_tpu_torch' / 'x' / 'raytracing').rglob('*.py')}
+    assert got <= want
+    missing = {p for p in want - got if not p.startswith('x/raytracing/io/')}
+    assert missing == {f'x/raytracing/{m}.py' for m in (
+        'design', 'tolerance', 'wavefront_differential', 'field', 'plotting')}
+    code = ('import sys, prysm_tpu_torch.x.raytracing.adjoint; '
+            'assert "pandas" not in sys.modules and "jax" not in sys.modules')
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_ported_solves_run_on_the_cpu(monkeypatch):

@@ -16,6 +16,8 @@ float32, and take the inputs the JAX package takes:
 9. needle synthesis takes the shallowest of the depths that only thicken a
    layer of the candidate's own medium (P is flat there but for rounding),
    so it grows the JAX package's design and not a rounding's choice.
+10. ``propagation.dft`` re-exports ``MDFT``, ``CZT``, ``FFTDFT`` and
+   ``fftrange`` from ``fttools``, as the JAX package's module does.
 """
 import numpy as np
 import pytest
@@ -171,3 +173,15 @@ def test_fault9_needle_takes_the_shallowest_depth_of_a_thickening():
     best = tneedle._best_insertion(tcoat.Stack(n, d, 1.52), merit(tcoat), [1.38, 2.05], z)
     assert (best[1], best[2]) == (1.38, float(z[34]))
     assert best[0] == pytest.approx(float(Pj.min()), rel=1e-12)
+
+
+@pytest.mark.parametrize('name', ['MDFT', 'CZT', 'FFTDFT', 'fftrange'])
+def test_fault10_dft_reexports_the_fttools_names(name):
+    """``from ...propagation.dft import MDFT`` works in both packages, and the
+    port's name is its ``fttools`` object itself."""
+    import importlib
+    jdft = importlib.import_module('prysm_tpu.propagation.dft')
+    tdft = importlib.import_module('prysm_tpu_torch.propagation.dft')
+    tft = importlib.import_module('prysm_tpu_torch.fttools')
+    assert getattr(jdft, name) is getattr(importlib.import_module('prysm_tpu.fttools'), name)
+    assert getattr(tdft, name) is getattr(tft, name)
