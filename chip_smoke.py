@@ -156,6 +156,31 @@ Phases, each of which raises on a failed check:
       continuation ladder and its parabasal pupils, on the card against
       the same launch on the CPU; exactly 3 Zernike forward launches and
       no other hand-written launch per call;
+   o. the lens designer's path (``steps.build_lens_design``: cfg6 with a neutral
+      coordinate break before the rear sphere), each step with the launch counts
+      set to 0 before it and read after: the prescription written by
+      ``write_zmx`` / ``write_seq`` and read back (both reads trace the edge
+      field's bundle alike, and like the design system with its curvatures
+      rounded to the writers' 6 significant digits, to 1e-12 mm in f64); the
+      optimisation by damped least squares over the three curvatures and two
+      glass thicknesses with the EFL held (the RMS spot radius at 0, 1 and 2
+      degrees on ``Sampling.hex(64)``, 12,481 rays a field, and the edge field's
+      RMS wavefront error; ``gradient='auto'``: reverse mode for the spots,
+      forward mode for the wavefront), in f64: at the start the 'auto'
+      Jacobian against central differences and, from the same launches, f32
+      against f64, the first iterates against the same solve on the CPU (a
+      worker process started at the top of the script), the EFL held and the
+      merit lowered; the tolerancing of the result (6 perturbations:
+      ``sensitivity_table`` against the adjoint sensitivities over its own
+      truncation, a seeded 100-trial ``monte_carlo`` whose first trials the CPU
+      repeats, the on-axis bundle's ``wavefront_differential`` with the image
+      gap as compensator against central differences, ``expected_rms``,
+      ``compensator_motions``, ``fast_monte_carlo``); the diffraction of the
+      result (``pupil_field`` at each field on a 128^2 grid, ``pupil_field_psf``
+      at 512^2, Q=2, and ``raytrace_prt`` of the edge bundle) in f32 against
+      f64; and one call of ``build_lens_analysis`` on the result in f32, which
+      launches the Zernike forward kernel 3 times and nothing else; the first
+      four steps launch no hand-written kernel;
    the paths of c-e, g-j and m run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
@@ -189,7 +214,11 @@ Phases, each of which raises on a failed check:
    share, device kernels and hand-written launches per call; the
    lens-analysis call and its sensitivities alone (wall, device time, busy
    share, device kernels, hand-written launches per call), ``first_order``
-   at one field and the fish-eye's ladder launch on the host clock;
+   at one field and the fish-eye's ladder launch on the host clock; the
+   designer's DLS linearisation (residuals and 'auto' Jacobian), wavefront
+   differential and one pupil-field PSF (wall, device ms, busy share, device
+   kernels, hand-written launches), a Monte Carlo trial and phase 3o's solve,
+   tolerancing, diffraction and analysis steps on the host clock;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -343,6 +372,46 @@ LENS_F32_BARS = {'landing': 1e-4, 'opl': 1e-5, 'xp_z': 1e-5, 'coefs': 3.3e-2, 'r
 # the f64 sensitivities against central differences: the difference's truncation
 # at LENS_FD_STEP (about 1e-7 of the largest, probes/lens_cpu_probe.py), ten times
 LENS_FD_BAR = 1e-6
+# phase 3o: the lens designer's path (steps.build_lens_design, cfg6 with a neutral
+# coordinate break before the rear sphere): the DLS iterates and the Monte Carlo trials
+# that the CPU repeats (the card runs steps.DESIGN_SOLVE's 10 and DESIGN_MC_TRIALS' 100;
+# one seed gives the CPU the card's first draws); the DLS's central-difference step
+DESIGN_CPU_ITERATES, DESIGN_CPU_TRIALS, DESIGN_FD_STEP = 3, 10, 1e-6
+# phase 3o's bars, each beside its reason; the float32 ones are the suggested ones or
+# twice the JAX package's own float32 error on the same path at full size on the CPU
+# (probes/design_cpu_probe.py), rounded up, where that is larger:
+# - io: the .zmx and .seq reads and the design system at the written digits trace
+#   alike to f64 rounding, 1e-12 mm; io_digits: the writers keep 6 significant digits
+#   (format 'g'), which move 1/62 by 3.2e-8 /mm and the edge bundle's landing points by
+#   1.3e-5 mm (CPU): 1e-4 mm
+# - fd: the 'auto' Jacobian against Richardson-extrapolated central differences, 1e-6
+#   of each column's largest (3.1e-7 on the CPU at full size)
+# - residuals 1.1e-3 relative (JAX f32 5.4e-4, the port's 1.9e-4); jacobian 1e-3 of
+#   each operand's largest entry (JAX 1.56e-4, the port's the same).  Column by column
+#   the glass-thickness columns are 6.9x their f64 size off in both packages: their
+#   launch tangents central-difference the float32 paraxial recipe at a 1e-6 step
+#   (design.Problem._launch_tangent_table), printed, not held
+# - iterates 1e-9, card against CPU, f64; efl 1e-9 relative; mc 1e-9 relative
+# - wd_fd: the forward-mode wavefront maps against central differences, 1e-4 of each
+#   column's largest: the differences' rounding, 1e-14 mm of path over their 2e-6
+#   step, is 4.3e-5 of the decentre column (CPU, full size)
+# - opd 0.17 um: the f32 pupil-field OPD (JAX f32 8.4e-2 um, the port's 7.0e-2: float32
+#   sums of 100 mm paths); psf 0.2 and psf_axis 0.29 of peak (JAX f32 9.97e-2 and
+#   0.145, the port's 0.113 and 0.141: the PSF follows the OPD's 0.15 waves; on axis
+#   the symmetric sample grid's Delaunay ties add the triangulation's own flips)
+# - jones 1e-5, the suggested one (JAX f32 8.5e-7, the port's 8.8e-7)
+# - psf_focus 2e-5 of peak, the PSF tier: the f64 pupil fields' samples resampled and
+#   focused in f32 against f64, every field (JAX f32 2.6e-6, the port's 2.5e-6)
+# - card against CPU in f64, at the CPU parity tests' tier or ten times the JAX package's
+#   f64 difference from the port's on the CPU (two implementations' rounding), where
+#   larger: opd64 1.8e-9 um (1.7e-10: 100 mm paths); psf64 1.6e-9 of peak off axis,
+#   end to end (1.6e-10: the OPD's phase; on axis 8.8e-6, the samples' Delaunay ties,
+#   printed, not held); focus64 1e-10 of peak, the CPU's samples focused on the card
+#   (9.5e-16); jones64 1e-12 (1.7e-15)
+DESIGN_BARS = {'io': 1e-12, 'io_digits': 1e-4, 'fd': 1e-6, 'residuals': 1.1e-3,
+               'jacobian': 1e-3, 'iterates': 1e-9, 'efl': 1e-9, 'wd_fd': 1e-4, 'mc': 1e-9,
+               'opd': 0.17, 'psf': 0.2, 'psf_axis': 0.29, 'jones': 1e-5, 'psf_focus': 2e-5,
+               'opd64': 1.8e-9, 'psf64': 1.6e-9, 'focus64': 1e-10, 'jones64': 1e-12}
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -850,9 +919,7 @@ def check_cfg5(frames, per_frame, frame5, dev):
 
 def no_kernel_launches(what):
     """The launch counts since the last reset, all of which must be 0."""
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
-    counts = {**zk.LAUNCHES, **noise.LAUNCHES}
+    counts = launch_counts()
     print(f'  launches on the {what} path (no hand-written kernel): {json.dumps(counts)}')
     require(not any(counts.values()), f'the {what} path launched a kernel: {counts}')
 
@@ -1006,18 +1073,15 @@ def q2d_worst_term(fit32, fit64):
 
 def phase_freeform(dev):
     """The freeform fit in f32 through its entry point, against the same path in f64."""
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import FREEFORM_FAMILIES, build_freeform_fit
 
     # cfg2's TF32 scope must have put the switch back: lstsq's Gram matrix is full f32
     require(not torch.backends.cuda.matmul.allow_tf32,
             'TF32 is on after the cfg2 phase: set_matmul_precision left it off')
     fit32 = build_freeform_fit(N, device=dev)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     out = synced(fit32)
-    counts = {**zk.LAUNCHES, **noise.LAUNCHES}
+    counts = launch_counts()
     print(f'  launches on the freeform path: {json.dumps(counts)}')
     require(counts == {'zernike_fwd': 1, 'zernike_bwd_coefs': 0, 'zernike_bwd_all': 0,
                        'noise_expose': 0},
@@ -1057,8 +1121,6 @@ def phase_image_chain(dev):
     """The image chain in f32 through its entry point, against f64; the target's threshold flips."""
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
     from prysm_tpu_torch.objects import siemensstar
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import IMAGE_SPOKES, build_image_chain
 
     star = {dt: siemensstar(*cart_to_polar(*make_xy_grid(N, diameter=2.0, dtype=dt, device=dev)),
@@ -1072,8 +1134,7 @@ def phase_image_chain(dev):
           f'{int((flips & (x.abs() == y.abs())).sum())} of them on the diagonals '
           '(the chains take the f64 star, cast)')
     chain32 = build_image_chain(N, device=dev, target=star[torch.float64].float())
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     img = synced(chain32)
     no_kernel_launches('image chain')
     for a in img:
@@ -1087,15 +1148,12 @@ def phase_image_chain(dev):
 
 def phase_cfg6(dev):
     """cfg6 in f32 through its entry points, against f64 on the card."""
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import build_cfg6_grad, build_cfg6_trace
     from prysm_tpu_torch.x.raytracing.spencer_and_murty import eic_closing
 
     trace32 = build_cfg6_trace(device=dev)
     grad32 = build_cfg6_grad(device=dev)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     res = synced(trace32)
     loss32, g32, rms32 = synced(grad32)
     no_kernel_launches('cfg6')
@@ -1203,8 +1261,6 @@ def phase_metrology(dev):
     from prysm_tpu_torch import profiling
     from prysm_tpu_torch.coordinates import uniform_cart_to_polar
     from prysm_tpu_torch.interferogram import Interferogram, bandlimited_rms
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import (METROLOGY_BAND, METROLOGY_CLIP, build_metrology,
                                        metrology_measurement)
 
@@ -1214,8 +1270,7 @@ def phase_metrology(dev):
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     met32 = build_metrology(N, device=dev, measurement=measurement)
     met64 = build_metrology(N, dtype=torch.float64, device=dev, measurement=measurement)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     out = synced(met32)
     no_kernel_launches('metrology')
     for k, v in out.items():
@@ -1520,7 +1575,6 @@ def phase_coating(dev, cpu_ref):
 
 def phase_retrieval(dev):
     """The optym phase retrieval in f32 through its entry point; returns it and its run."""
-    from prysm_tpu_torch.ops import noise
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import build_phase_retrieval_lbfgsb
 
@@ -1534,13 +1588,12 @@ def phase_retrieval(dev):
         return out
 
     pr.fg = counted
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     res = synced(pr)
     wall = time.perf_counter() - t0
     pr.fg = fg
-    launches = {**zk.LAUNCHES, **noise.LAUNCHES}
+    launches = launch_counts()
     on_card(res.x, dev, torch.float32, 'the retrieval iterate')
     err = float((res.x - pr.truth).abs().max())
     print(f'  retrieval: {res.nit} iterations ({res.message}), {len(per_fg)} objective '
@@ -1591,8 +1644,6 @@ def phase_wavefront_control(dev, pieces):
     """The wavefront-control step in f32 (TF32 MDFT) through its entry point for STEPS steps,
     against f64 on the card; its Shack-Hartmann frame; the hand-written adjoint chain in f64.
     ``pieces``: the launches of each Zernike kernel that the 36-mode plan takes (phase 2)."""
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import (WFC_NACT, WFC_NMS, build_wavefront_control,
                                        make_cfg2_plan, sh_geometry)
     from prysm_tpu_torch.x.dm import DM
@@ -1602,13 +1653,12 @@ def phase_wavefront_control(dev, pieces):
     print(f'  {len(WFC_NMS)} modes: {pieces} launch(es) in each direction per step', flush=True)
     wfc = build_wavefront_control(N, fN=FN, device=dev)
     a, c = wfc.dm.actuators, wfc.pupil.coefs
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     per_step = []
     for i in range(STEPS):
-        before = {**zk.LAUNCHES, **noise.LAUNCHES}
+        before = launch_counts()
         loss, ga, gc = synced(lambda: wfc(a, c))
-        per_step.append({k: v - before[k] for k, v in {**zk.LAUNCHES, **noise.LAUNCHES}.items()})
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
         require(bool(torch.isfinite(loss)) and bool(torch.isfinite(ga).all())
                 and bool(torch.isfinite(gc).all()), f'wavefront-control step {i}: not finite')
         if i == 0:
@@ -2045,8 +2095,6 @@ def phase_lens_analysis(dev, pieces):
     against the same launch on the CPU.  ``pieces``: the launches of the Zernike forward
     that the 36-mode plan takes (phase 2).  Returns what phase 4 times."""
     import numpy as np
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import CFG6_RINGS, build_lens_analysis
 
     want = {'zernike_fwd': 3 * pieces, 'zernike_bwd_coefs': 0, 'zernike_bwd_all': 0,
@@ -2059,10 +2107,9 @@ def phase_lens_analysis(dev, pieces):
     require(la32.P.shape == (rays, 3) and np.array_equal(la32.P, la64.P)
             and np.array_equal(la32.S, la64.S) and bool(np.isfinite(la32.S).all()),
             'lens analysis: the f32 and f64 plans launched other bundles, or lost rays')
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     coefs, rms, psfs, grads, values = synced(la32)
-    launches = {**zk.LAUNCHES, **noise.LAUNCHES}
+    launches = launch_counts()
     print(f'  launches per lens-analysis call: {json.dumps(launches)}', flush=True)
     require(launches == want, f'the lens-analysis call did not launch {want}: {launches}')
     require(coefs.shape == (1, 3, 36) and rms.shape == (1, 3) and psfs.shape == (3, FN, FN)
@@ -2129,26 +2176,9 @@ def lens_timing(smi, la32, fisheye_s):
     """Phase 4's lines for the lens-analysis path: the call and the sensitivities alone
     (wall, device ms, busy share, device kernels, hand-written launches per call),
     ``first_order`` at one field and the fish-eye's ladder launch on the host clock."""
-    from prysm_tpu_torch.ops import noise
-    from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.x.raytracing.parabasal import first_order
-    calls = {'lens_analysis': la32, 'lens_sensitivity': la32.sensitivities}
-    timing = step_ms(calls, runs=10, warmup=2)
-    for name, fn in calls.items():
-        breakdown = device_breakdown(fn, steps=3)
-        zk.reset_launches()
-        noise.reset_launches()
-        synced(fn)
-        launched = sum({**zk.LAUNCHES, **noise.LAUNCHES}.values())
-        wall = timing[name]
-        if breakdown is None:
-            print(f'{smi} | {name}_ms {wall:.4f}; device ms not measured (every profiler '
-                  f'trace came back empty); hand-written {launched}', flush=True)
-            continue
-        busy, kernels_per, top = breakdown
-        print(f'{smi} | {name}_ms {wall:.4f}; device_ms_per_call {busy:.4f} busy share '
-              f'{busy / wall:.3f}; device kernels per call {kernels_per:.0f}, hand-written '
-              f'{launched}; top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
+    timed_lines(smi, {'lens_analysis': la32, 'lens_sensitivity': la32.sensitivities},
+                runs=10, warmup=2, steps=3)
     host = []
     with la32.configured():
         for _ in range(5):
@@ -2160,6 +2190,396 @@ def lens_timing(smi, la32, fisheye_s):
           f'real-aimed chief, 4 tangent sweeps); fisheye_ladder_launch_ms '
           f'{fisheye_s * 1e3:.4f} (host wall, one launch at {FISHEYE_DEG:g} deg, '
           f'hex({FISHEYE_RINGS}), f64)', flush=True)
+
+
+def design_cpu_reference():
+    """The f64 designer's optimisation on the host's CPU, run in a worker process: the
+    prescription read back and DESIGN_CPU_ITERATES damped-least-squares iterations from
+    the same start as the card's; their iterates and costs."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    from prysm_tpu_torch.steps import build_lens_design
+    design = build_lens_design(dtype=torch.float64, device='cpu')
+    design.prescription()
+    t0 = time.perf_counter()
+    res, _ = design.optimise(DESIGN_CPU_ITERATES)
+    return {'iterates': [h['x'] for h in res.history], 'costs': [h['cost'] for h in res.history],
+            'seconds': time.perf_counter() - t0}
+
+
+def count_fd_rows(problem):
+    """A list that collects the operand rows that ``problem``'s 'auto' residual Jacobian
+    central-differences from now on (``Problem._fd_fill``): the JAX package's fallback,
+    kept by the port, for an operand with no reverse-mode head and for one whose
+    forward-mode row raises.  Every operand of phase 3o has an engine, so the list must
+    stay empty: a wavefront row that fell back would otherwise pass the check against
+    central differences unseen."""
+    rows = []
+    fill = problem._fd_fill
+
+    def counted(J, which, x, step):
+        rows.extend(which)
+        return fill(J, which, x, step)
+
+    problem._fd_fill = counted
+    return rows
+
+
+def design_start(design):
+    """What phase 3o compares across precisions at the start, from the design plan
+    ``design`` in its dtype on its device: the prescription read back, its residuals and
+    'auto' residual Jacobian (host float64), and the Jacobian's central-differenced rows
+    (``count_fd_rows``)."""
+    design.prescription()
+    problem = design.problem()
+    fd_rows = count_fd_rows(problem)
+    x0 = problem.x0()
+    with design.configured():
+        return {'r': problem.residuals(x0), 'J': problem.residual_jacobian(x0),
+                'fd_rows': fd_rows}
+
+
+def design_diffraction(design, x):
+    """What phase 3o compares after the optimisation: with the plan's lens at ``x`` (the
+    optimised free vector), each field's pupil field (host samples), its OPD and PSF, and
+    the edge bundle's PRT Jones matrices (host numpy)."""
+    import numpy as np
+    design.system.opt.update(x)
+    fields, psfs, prt = design.diffraction()
+    return {'fields': fields, 'opd': [np.asarray(pf.opd, float) for pf in fields],
+            'psfs': [np.asarray(p, float) for p, _ in psfs], 'jones': prt.P_matrix}
+
+
+def design_diffraction_cpu(x):
+    """design_diffraction in f64 on the CPU, at the card's sizes, with the lens at x."""
+    from prysm_tpu_torch.steps import build_lens_design
+    design = build_lens_design(dtype=torch.float64, device='cpu')
+    design.prescription()
+    return design_diffraction(design, x)
+
+
+def design_refocus(design, fields):
+    """``pupil_field_psf`` of the pupil fields ``fields`` (host samples) in the plan's
+    dtype on its device: the resampling (host float64) and the focus alone, so that two
+    precisions or two devices are compared on the same samples."""
+    import numpy as np
+    from prysm_tpu_torch.steps import DESIGN_Q
+    from prysm_tpu_torch.x.raytracing import pupil_field_psf
+    with design.configured():
+        return [np.asarray(pupil_field_psf(pf, npix=design.npix, Q=DESIGN_Q)[0], float)
+                for pf in fields]
+
+
+def peak_errors(psfs, refs):
+    """Each PSF's largest difference from its reference, relative to the reference's peak."""
+    import numpy as np
+    return [float(np.abs(a - b).max() / b.max()) for a, b in zip(psfs, refs)]
+
+
+def design_errors(q, ref):
+    """Phase 3o's float32 errors of ``q`` against ``ref`` (design_start's and
+    design_diffraction's outputs together): the
+    residuals relative to the largest; the Jacobian operand by operand (row by row)
+    relative to each row's largest, and column by column ('jacobian_columns', printed:
+    the glass-thickness columns carry the launch tangents' central difference of a
+    float32 paraxial recipe, in both packages); the pupil-field OPD in um, the worst
+    field; each field's PSF relative to its peak
+    (the worst of the fields off axis, and on axis apart: there the sine-space samples
+    form a symmetric grid that SciPy's Delaunay triangulation splits by rounding); the
+    Jones matrices absolute."""
+    import numpy as np
+    J, Jr = np.asarray(q['J'], float), np.asarray(ref['J'], float)
+    psf = peak_errors(q['psfs'], ref['psfs'])
+    return {'opd': max(float(np.abs(a - b).max()) for a, b in zip(q['opd'], ref['opd'])),
+            'residuals': float(np.abs(q['r'] - ref['r']).max() / np.abs(ref['r']).max()),
+            'jacobian': float((np.abs(J - Jr).max(axis=1) / np.abs(Jr).max(axis=1)).max()),
+            'jacobian_columns': float((np.abs(J - Jr).max(axis=0)
+                                       / np.abs(Jr).max(axis=0)).max()),
+            'psf_axis': psf[0], 'psf': max(psf[1:]),
+            'jones': float(np.abs(np.asarray(q['jones']) - ref['jones']).max())}
+
+
+def design_fd_jacobian(problem, x, h):
+    """Central differences of the weighted residuals (``problem.residuals``) at steps h and
+    2h (each times max(1, |x_k|); h is the DLS's 1e-6), Richardson-extrapolated: at h
+    alone the curvature columns' truncation is 5e-6 of their largest entry, at h / 10 the
+    wavefront row's rounding (its OPD is a difference of 100 mm paths) is 3e-6 of the
+    thickness columns.  The lens is left at x."""
+    import numpy as np
+
+    def central(step):
+        J = np.zeros((len(problem.operands), x.size))
+        for k in range(x.size):
+            d = step * max(1.0, abs(x[k]))
+            hi, lo = x.copy(), x.copy()
+            hi[k], lo[k] = x[k] + d, x[k] - d
+            J[:, k] = (problem.residuals(hi) - problem.residuals(lo)) / (2 * d)
+        return J
+
+    J = (4 * central(h) - central(2 * h)) / 3
+    problem.residuals(x)
+    return J
+
+
+def design_io(design, from_zmx, from_seq):
+    """(zmx vs seq, read vs the written digits, read vs cfg6 unrounded) max landing-point
+    differences in mm of the edge field's bundle, traced in the plan's dtype on its
+    device: the written digits are the design system with each curvature rounded to the
+    writers' 6 significant digits (``format(c, 'g')``)."""
+    import numpy as np
+    from prysm_tpu_torch.steps import WVL, cfg6_design_system
+    from prysm_tpu_torch.x.raytracing import raytrace
+    from prysm_tpu_torch.x.raytracing.spencer_and_murty import to_host
+    exact, digits = cfg6_design_system(), cfg6_design_system()
+    digits.opt.vary('curvature')
+    digits.opt.update([float(format(c, 'g')) for c in digits.opt.pack()])
+    P, S = design.bundle(len(design.system.fields) - 1)
+    with design.configured():
+        land = [to_host(raytrace(s.to_surfaces(), P, S, WVL).P[-1])
+                for s in (from_zmx, from_seq, digits, exact)]
+    return tuple(float(np.abs(land[0] - other).max()) for other in land[1:])
+
+
+def design_monte_carlo_cpu(x, trials):
+    """The first ``trials`` Monte Carlo merits of the tolerancing step with the lens at x,
+    f64 on the CPU (the same seed, so the card's first ``trials`` draws)."""
+    from prysm_tpu_torch.steps import DESIGN_MC_SEED, build_lens_design
+    design = build_lens_design(dtype=torch.float64, device='cpu')
+    design.prescription()
+    design.system.opt.update(x)
+    merit = design.spot_merit(*design.bundle(len(design.system.fields) - 1))
+    with design.configured():
+        return design.system.tol.monte_carlo(design.perturbations(), merit, trials,
+                                             seed=DESIGN_MC_SEED).merits
+
+
+def reset_launches():
+    """Set every hand-written kernel's launch count to 0."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    zk.reset_launches()
+    noise.reset_launches()
+
+
+def launch_counts():
+    """Every hand-written kernel's launches since the last reset, by name."""
+    from prysm_tpu_torch.ops import noise
+    from prysm_tpu_torch.ops import zernike as zk
+    return {**zk.LAUNCHES, **noise.LAUNCHES}
+
+
+def launch_total():
+    """The hand-written kernels' launches since the last reset."""
+    return sum(launch_counts().values())
+
+
+def phase_lens_design(dev, design_ref, pieces, N=N, FN=FN):
+    """The lens designer's path through its entry point (``steps.build_lens_design``), f64
+    on the card (f32 beside it where the checks compare precisions), each step with every
+    launch count set to 0 before it and read after: the prescription's IO round trip;
+    the 'auto' Jacobian at the start against central differences (with the rows it
+    central-differenced counted, at the start and through the solve), f32 against f64,
+    and the optimisation's first iterates against the CPU's (``design_ref``, the worker's);
+    the tolerancing's sensitivity table against the adjoint, its wavefront differential
+    against central differences and its Monte Carlo against the CPU's; the diffraction
+    in f32 against f64 (end to end, and the focus alone on the f64 samples) and in f64
+    against the CPU's; one lens-analysis call on the optimised lens (``pieces``: the
+    Zernike forward's launches a field).  Returns what phase 4 times."""
+    import numpy as np
+    from prysm_tpu_torch.steps import DESIGN_SOLVE, WVL, build_lens_design
+    from prysm_tpu_torch.x.raytracing import effective_focal_length
+    from prysm_tpu_torch.x.raytracing.adjoint import RmsSpotHead
+
+    t0 = time.perf_counter()
+    d64 = build_lens_design(dtype=torch.float64, device=dev)
+    d32 = build_lens_design(dtype=torch.float32, device=dev)
+    seconds = {}
+
+    print('  step 1: prescription (write_zmx / write_seq, read back)', flush=True)
+    reset_launches()
+    zmx, seq, from_zmx, from_seq = d64.prescription()
+    io = design_io(d64, from_zmx, from_seq)
+    no_kernel_launches('prescription')
+
+    print('  step 2: optimisation (DLS, gradient=\'auto\')', flush=True)
+    reset_launches()
+    problem = d64.problem()
+    fd_rows = count_fd_rows(problem)
+    x0 = problem.x0()
+    with d64.configured():
+        merit0 = problem.merit(x0)
+        r64, J64 = problem.residuals(x0), problem.residual_jacobian(x0)
+        fd = design_fd_jacobian(problem, x0, DESIGN_FD_STEP)
+    q32 = design_start(d32)
+    t1 = time.perf_counter()
+    res, problem = d64.optimise(problem=problem)
+    seconds['solve'] = time.perf_counter() - t1
+    with d64.configured():
+        efl = float(effective_focal_length(d64.system.to_surfaces(), wvl=WVL))
+        merit = problem.merit(res.x)
+    no_kernel_launches('optimisation')
+    cpu = design_ref.get()
+    card_iterates = [h['x'] for h in res.history[:DESIGN_CPU_ITERATES]]
+    iterate_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                      for a, b in zip(card_iterates, cpu['iterates']))
+    require(len(cpu['iterates']) == DESIGN_CPU_ITERATES == len(card_iterates),
+            'the CPU or the card took fewer DLS iterations than compared')
+
+    print('  step 3: tolerancing (sensitivity table, Monte Carlo, wavefront differential)',
+          flush=True)
+    reset_launches()
+    t1 = time.perf_counter()
+    tol = d64.tolerance()
+    seconds['tolerance'] = time.perf_counter() - t1
+    edge = len(d64.system.fields) - 1
+    P2, S2 = d64.bundle(edge)
+    P0, S0 = d64.bundle(0)
+    merit_fn = d64.spot_merit(P2, S2)
+    perts = d64.perturbations()
+    with d64.configured():
+        half = d64.system.tol.sensitivity(d64.perturbations(0.5), merit_fn).sensitivities()
+        exact = d64.system.tol.adjoint_sensitivity(perts, [RmsSpotHead()], P2, S2).jacobian[0]
+        tangent = d64.system.tol.wavefront(perts, P0, S0, WVL).dW
+        central = d64.system.tol.wavefront(perts, P0, S0, WVL, method='fd').dW
+    no_kernel_launches('tolerancing')
+    table = tol.table.sensitivities()
+    floor = 1e-9 * np.abs(exact).max()
+    trunc = float((np.abs(table - exact) / (4 / 3 * np.abs(table - half) + floor)).max())
+    wd_err = float((np.abs(tangent - central).max(axis=0) / np.abs(central).max(axis=0)).max())
+    mc_cpu = design_monte_carlo_cpu(res.x, DESIGN_CPU_TRIALS)
+    mc_err = float(np.abs(tol.monte_carlo.merits[:DESIGN_CPU_TRIALS] - mc_cpu).max()
+                   / np.abs(mc_cpu).max())
+
+    print('  step 4: diffraction (pupil fields and PSFs, f32 and f64, the CPU\'s; PRT)',
+          flush=True)
+    reset_launches()
+    t1 = time.perf_counter()
+    q64 = {'r': r64, 'J': J64, **design_diffraction(d64, res.x)}
+    seconds['diffraction'] = time.perf_counter() - t1
+    q32.update(design_diffraction(d32, res.x))
+    focus32 = peak_errors(design_refocus(d32, q64['fields']), q64['psfs'])
+    cpu64 = design_diffraction_cpu(res.x)
+    same64 = peak_errors(design_refocus(d64, cpu64['fields']), cpu64['psfs'])
+    no_kernel_launches('diffraction')
+    err = design_errors(q32, q64)
+    card64 = {'opd': max(float(np.abs(a - b).max()) for a, b in zip(q64['opd'], cpu64['opd'])),
+              'psf': peak_errors(q64['psfs'], cpu64['psfs']),
+              'jones': float(np.abs(np.asarray(q64['jones']) - cpu64['jones']).max())}
+
+    print('  step 5: analysis (build_lens_analysis on the optimised lens, f32)', flush=True)
+    d32.system.opt.update(res.x)
+    reset_launches()
+    t1 = time.perf_counter()
+    _, (coefs, rms, psfs, grads, values) = d32.analysis(N, FN)
+    torch.cuda.synchronize()
+    seconds['analysis'] = time.perf_counter() - t1
+    launches = launch_counts()
+    want = {'zernike_fwd': 3 * pieces, 'zernike_bwd_coefs': 0, 'zernike_bwd_all': 0,
+            'noise_expose': 0}
+    print(f'  launches in the analysis step: {json.dumps(launches)}', flush=True)
+    require(launches == want, f'the analysis step did not launch {want}: {launches}')
+    require(coefs.shape == (1, 3, 36) and psfs.shape == (3, FN, FN)
+            and bool(torch.isfinite(coefs).all()) and bool(torch.isfinite(psfs).all())
+            and bool(np.isfinite(grads).all()), 'the analysis step\'s outputs')
+    finite = (all(np.isfinite(p).all() for p in q64['psfs'])
+              and np.isfinite(tol.monte_carlo.merits).all()
+              and np.isfinite(tol.fast_monte_carlo.merits).all()
+              and np.isfinite(tol.compensator_motions).all())
+    require(finite and res.nit == DESIGN_SOLVE['maxiter'], 'design outputs')
+    print(f'  f32 auto Jacobian vs f64, column by column (not held): '
+          f'{err["jacobian_columns"]:.3e}; f64 PSF on axis, card vs CPU end to end (not '
+          f'held: the samples\' Delaunay ties) {card64["psf"][0]:.3e}; f32 focus of the f64 '
+          f'pupil fields by field {", ".join(f"{e:.3e}" for e in focus32)}', flush=True)
+
+    print(f'  design: {len(P2)} rays a field; merit {merit0:.6e} -> {merit:.6e} in {res.nit} '
+          f'iterations ({res.nfev} evaluations, {seconds["solve"]:.1f} s; the CPU\'s '
+          f'{DESIGN_CPU_ITERATES} took {cpu["seconds"]:.1f} s); x {np.array2string(res.x, precision=8)}; '
+          f'EFL {efl:.9f} (held {problem.equality_constraints[0].target:.9f}); expected RMS '
+          f'{tol.expected_rms:.4e} mm, nominal {tol.differential.rms_nominal:.4e}; Monte Carlo '
+          f'mean {tol.monte_carlo.summary()["mean"]:.4e} mm, fast {tol.fast_monte_carlo.summary()["mean"]:.4e} '
+          f'mm; compensator motions {np.array2string(tol.compensator_motions, precision=4)}; '
+          f'IO: the read lens vs cfg6 unrounded {io[2]:.3e} mm; seconds {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; '
+          f'the phase {time.perf_counter() - t0:.1f} s', flush=True)
+    bars = DESIGN_BARS
+    run_checks([
+        ('IO: .zmx read vs .seq read, landing (mm, f64)', io[0], bars['io']),
+        ('IO: read vs the written digits, landing (mm, f64)', io[1], bars['io']),
+        ('IO: read vs cfg6 unrounded, landing (mm, f64)', io[2], bars['io_digits']),
+        ('f64 auto Jacobian vs central differences (per column)',
+         float((np.abs(J64 - fd).max(axis=0) / np.abs(J64).max(axis=0)).max()), bars['fd']),
+        ('auto Jacobian rows central-differenced (start, solve, f32)',
+         len(fd_rows) + len(q32['fd_rows']), 0),
+        ('f32 residuals vs f64 at the start (rel)', err['residuals'], bars['residuals']),
+        ('f32 auto Jacobian vs f64 at the start (per operand)', err['jacobian'],
+         bars['jacobian']),
+        (f'f64 DLS iterates 1-{DESIGN_CPU_ITERATES}, card vs CPU (rel)', iterate_err,
+         bars['iterates']),
+        ('EFL held by the optimisation (rel)', abs(efl - problem.equality_constraints[0].target)
+         / abs(efl), bars['efl']),
+        ('merit lowered (final / start - 1)', merit / merit0 - 1, 0.0),
+        ('sensitivity table vs adjoint (over its truncation est.)', trunc, 1.5),
+        ('wavefront differential, tangent vs FD (per column)', wd_err, bars['wd_fd']),
+        (f'Monte Carlo merits 1-{DESIGN_CPU_TRIALS}, card vs CPU (rel)', mc_err, bars['mc']),
+        ('f32 pupil-field OPD vs f64 (um)', err['opd'], bars['opd']),
+        ('f32 pupil-field PSFs off axis vs f64 (peak rel)', err['psf'], bars['psf']),
+        ('f32 pupil-field PSF on axis vs f64 (peak rel)', err['psf_axis'], bars['psf_axis']),
+        ('f32 PRT Jones matrices vs f64 (abs)', err['jones'], bars['jones']),
+        ('f32 focus of f64 pupil fields vs f64 (peak rel, all fields)', max(focus32),
+         bars['psf_focus']),
+        ('f64 pupil-field OPD, card vs CPU (um)', card64['opd'], bars['opd64']),
+        ('f64 PSFs off axis, card vs CPU (peak rel)', max(card64['psf'][1:]), bars['psf64']),
+        ('f64 focus of the CPU\'s pupil fields, card vs CPU (peak rel)', max(same64),
+         bars['focus64']),
+        ('f64 PRT Jones matrices, card vs CPU (abs)', card64['jones'], bars['jones64']),
+    ], width=60)
+    return d64, problem, res, perts, (P0, S0), merit_fn, seconds
+
+
+def design_timing_lines(smi, design, problem, res, perts, bundle0, merit_fn, seconds):
+    """Phase 4's lines for the lens designer's path, f64 on the card, each with the card:
+    one DLS iteration's linearisation (the residuals and the 'auto' Jacobian at the
+    optimised lens: wall, device ms, busy share, device kernels, hand-written launches),
+    the wavefront differential of the on-axis bundle and one pupil field with its PSF
+    (the same), a Monte Carlo trial on the host's clock (median of 10), and the whole
+    solve, tolerancing and diffraction steps of phase 3o on the host's clock."""
+    import numpy as np
+    from prysm_tpu_torch.steps import DESIGN_Q, WVL
+    from prysm_tpu_torch.x.raytracing import pupil_field, pupil_field_psf
+    system = design.system
+    edge = system.field(len(system.fields) - 1)
+
+    def iteration():
+        return problem.residuals(res.x), problem.residual_jacobian(res.x)
+
+    def differential():
+        return system.tol.wavefront(perts, *bundle0, WVL)
+
+    def psf():
+        return pupil_field_psf(pupil_field(system, edge, WVL, npupil=design.npupil),
+                               npix=design.npix, Q=DESIGN_Q)
+
+    with design.configured():
+        timed_lines(smi, {'design_dls_iteration': iteration,
+                          'design_wavefront_differential': differential,
+                          'design_pupil_field_psf': psf}, runs=5, warmup=1, steps=2)
+        rng = np.random.default_rng(0)
+        trials = []
+        try:
+            for _ in range(10):
+                t0 = time.perf_counter()
+                for p in perts:
+                    p.set(p.sample(rng))
+                merit_fn(system)
+                torch.cuda.synchronize()
+                trials.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for p in perts:
+                p.reset()
+    print(f'{smi} | design_monte_carlo_trial_ms {statistics.median(trials):.4f} (host wall, '
+          f'6 perturbations set and one spot merit traced, 12,481 rays, f64); phase 3o host '
+          f'wall: the solve ({res.nit} iterations, {res.nfev} evaluations) '
+          f'{seconds["solve"] * 1e3:.1f} ms, tolerancing {seconds["tolerance"] * 1e3:.1f} ms, '
+          f'diffraction (3 fields) {seconds["diffraction"] * 1e3:.1f} ms, analysis (planned '
+          f'and called) {seconds["analysis"] * 1e3:.1f} ms', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2259,6 +2679,34 @@ def device_breakdown(fn, steps=10, top=5, tries=3):
         (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
 
 
+def device_line(smi, label, fn, wall, steps, unit='call'):
+    """Print phase 4's device line for ``fn``: ``label`` (ending in its device-time key),
+    the device ms per ``unit`` over ``steps`` profiled calls and the busy share against
+    ``wall`` (its wall ms), the device kernels per ``unit``, the hand-written launches of
+    one call and the kernels that take the most."""
+    breakdown = device_breakdown(fn, steps=steps)
+    reset_launches()
+    synced(fn)
+    launched = launch_total()
+    if breakdown is None:
+        print(f'{smi} | {label} not measured (every profiler trace came back empty); '
+              f'hand-written {launched}', flush=True)
+        return
+    busy, kernels_per, top = breakdown
+    print(f'{smi} | {label} {busy:.4f} busy share {busy / wall:.3f}; device kernels per '
+          f'{unit} {kernels_per:.0f}, hand-written {launched}; top: '
+          + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
+
+
+def timed_lines(smi, calls, runs, warmup, steps):
+    """Phase 4's lines for ``calls`` (name -> call), timed in turns (``step_ms``): each
+    call's wall ms and its ``device_line``."""
+    timing = step_ms(calls, runs=runs, warmup=warmup)
+    for name, fn in calls.items():
+        device_line(smi, f'{name}_ms {timing[name]:.4f}; device_ms_per_call', fn,
+                    timing[name], steps)
+
+
 def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, metrology, film,
                  wfc):
     from prysm_tpu_torch.coordinates import make_xy_grid, cart_to_polar
@@ -2324,20 +2772,7 @@ def phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6, met
                                    ('wfc', 'wfc_step_ms', 'step', 10),
                                    ('dm_render', 'dm_render_ms', 'call', 10),
                                    ('sh_frame', 'sh_frame_ms', 'frame', 10)):
-        wall = timing[key]
-        breakdown = device_breakdown(calls[key], steps=steps)
-        zk.reset_launches()
-        noise.reset_launches()
-        synced(calls[key])
-        launched = sum({**zk.LAUNCHES, **noise.LAUNCHES}.values())
-        if breakdown is None:
-            print(f'{smi} | {name}_device_ms_per_{unit} not measured (every profiler trace '
-                  f'came back empty); hand-written {launched}', flush=True)
-            continue
-        busy, kernels_per, top = breakdown
-        print(f'{smi} | {name}_device_ms_per_{unit} {busy:.4f} busy share '
-              f'{busy / wall:.3f}; device kernels per {unit} {kernels_per:.0f}, hand-written '
-              f'{launched}; top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top), flush=True)
+        device_line(smi, f'{name}_device_ms_per_{unit}', calls[key], timing[key], steps, unit)
 
     # cfg6's host launch (paraxial aiming, 3 fields of hex(64)) on its own
     from prysm_tpu_torch.x.raytracing.batch import _host_launches
@@ -2484,18 +2919,19 @@ def main():
     def stamp():
         return f'[{time.perf_counter() - start:.1f} s]'
 
-    # phase 3j's f64 CPU reference runs in a worker process from here on
+    # phases 3j's and 3o's f64 CPU references run in a worker process from here on
     import multiprocessing
     workers = multiprocessing.get_context('spawn').Pool(1)
     try:
         cpu_ref = workers.apply_async(coating_cpu_reference)
-        return run(start, stamp, cpu_ref)
+        design_ref = workers.apply_async(design_cpu_reference)
+        return run(start, stamp, cpu_ref, design_ref)
     finally:
         workers.terminate()
         workers.join()
 
 
-def run(start, stamp, cpu_ref):
+def run(start, stamp, cpu_ref, design_ref):
     from prysm_tpu_torch.ops import _cuda, noise
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import (WFC_NMS, build_cfg3_step, build_cfg4_chain,
@@ -2531,8 +2967,7 @@ def run(start, stamp, cpu_ref):
     print(f'phase 3a: main path (cfg2 x5, entry + cfg1 x5, zernike_sum grads=all) {stamp()}',
           flush=True)
     ref = references(dev)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     out = drive_main_path(dev)
     launches = dict(zk.LAUNCHES)
     check_main_path(out, ref, launches)
@@ -2540,8 +2975,7 @@ def run(start, stamp, cpu_ref):
 
     print(f'phase 3b: main path (cfg5 frame at {N5}^2, seeds {list(SEEDS5)}) {stamp()}',
           flush=True)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     frames, per_frame = drive_cfg5(frame5)
     launches['noise_expose'] = noise.LAUNCHES['noise_expose']
     require(launches['noise_expose'] > 0, 'noise_expose was not launched on the cfg5 path')
@@ -2551,19 +2985,16 @@ def run(start, stamp, cpu_ref):
     print(f'phase 3c: cfg3 (19-segment aperture at {N3}^2, PSF {2 * N3}^2, encircled energy '
           f'and its gradient) x{STEPS} {stamp()}', flush=True)
     step3 = build_cfg3_step(N3, device=dev)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     phase_cfg3(dev, step3)
     print(f'phase 3d: cfg4 (angular spectrum -> lens -> angular spectrum at {N4}^2) {stamp()}',
           flush=True)
     chain4 = build_cfg4_chain(N4, device=dev)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     phase_cfg4(dev, chain4)
     print(f'phase 3e: executors (MDFT, CZT, FFTDFT; multi-resolution Babinet) {stamp()}',
           flush=True)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     phase_executors(dev)
     torch.cuda.synchronize()
     print(f'phase 3f: freeform fit (Q2d sag and slopes, 36-mode Zernike fit, sag families at '
@@ -2585,8 +3016,7 @@ def run(start, stamp, cpu_ref):
     torch.cuda.synchronize()
     print(f'phase 3j: coating design (41-layer edge filter, 1024 wavelengths x 2 angles, s and '
           f'p; refine by L-BFGS-B and DLS; needle synthesis) {stamp()}', flush=True)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     designs, walls = phase_coating(dev, cpu_ref)
     no_kernel_launches('coating design')
     torch.cuda.synchronize()
@@ -2600,8 +3030,7 @@ def run(start, stamp, cpu_ref):
     torch.cuda.synchronize()
     print(f'phase 3m: instruments at {N_INSTR}^2 (4-step PSPDI, SRI, vector vortex; germanium '
           f'singlet at 80 and 295 K) {stamp()}', flush=True)
-    zk.reset_launches()
-    noise.reset_launches()
+    reset_launches()
     phase_instruments(dev)
     no_kernel_launches('instruments')
     torch.cuda.synchronize()
@@ -2611,12 +3040,19 @@ def run(start, stamp, cpu_ref):
           f'{FISHEYE_DEG:g} degrees) {stamp()}', flush=True)
     lens = phase_lens_analysis(dev, pieces[WFC_NMS])
     torch.cuda.synchronize()
+    print(f'phase 3o: lens design (cfg6 read from .zmx / .seq; DLS over 3 curvatures and 2 '
+          f'thicknesses on 3 fields x hex(64) with an EFL constraint; sensitivity table, '
+          f'Monte Carlo, wavefront differential; pupil fields at 128^2 -> 512^2 PSFs, PRT; '
+          f'the lens analysis of the result) {stamp()}', flush=True)
+    design = phase_lens_design(dev, design_ref, pieces[WFC_NMS])
+    torch.cuda.synchronize()
 
     print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
     kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
                            metrology, film, wfc)
     design_timing(smi, designs, walls, retrieval)
     lens_timing(smi, *lens)
+    design_timing_lines(smi, *design)
     torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

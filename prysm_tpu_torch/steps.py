@@ -49,7 +49,12 @@ Counterparts, without any timing harness, of
   Zernike sum plus a folded 50 x 50 DM's WFE, focused by cfg2's MDFT plan,
   the intensity loss against the unaberrated PSF and its gradients with
   respect to the actuators and the coefficients; beside it a
-  Shack-Hartmann frame of the same field.
+  Shack-Hartmann frame of the same field;
+* the lens designer's path on cfg6: the prescription written to Zemax
+  and Code V text and read back, optimised by damped least squares over
+  the curvatures and glass thicknesses with an EFL constraint, then
+  toleranced (sensitivity table, Monte Carlo, wavefront differential),
+  its pupil fields focused to PSFs, polarization-traced, and analysed.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -63,7 +68,8 @@ blurred images; ``build_cfg6_trace`` one that returns the
 ``RayTraceResult`` of the merged bundle, ``build_cfg6_grad`` one that
 returns the spot loss and its curvature gradient, ``build_lens_analysis``
 one that returns cfg6's real-aimed Zernike fit, field PSFs and adjoint
-sensitivities, ``build_metrology`` one
+sensitivities, ``build_lens_design`` a plan whose methods run the
+designer's steps one by one, ``build_metrology`` one
 that returns the analysis's results, ``build_coating_design`` one that
 returns the two refinements and the synthesis, and
 ``build_phase_retrieval_lbfgsb`` one that returns the governed run's
@@ -114,7 +120,11 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'RETRIEVAL_ITERS', 'build_phase_retrieval_lbfgsb', 'WFC_NMS', 'WFC_SEED', 'WFC_RMS',
            'WFC_ACT_RMS', 'WFC_NACT', 'WFC_SEP', 'WFC_ROT', 'SH_SAMPLES', 'SH_SPOT', 'wfc_state',
            'sh_geometry', 'build_wavefront_control', 'LENS_NMS', 'LENS_SPHERES',
-           'LENS_THICKNESSES', 'build_lens_analysis']
+           'LENS_THICKNESSES', 'build_lens_analysis', 'DESIGN_DECENTRE_ROW',
+           'DESIGN_CURVATURE_ROWS', 'DESIGN_THICKNESS_ROWS', 'DESIGN_FOCUS_ROW', 'DESIGN_SOLVE',
+           'DESIGN_SIGMAS', 'DESIGN_MC_TRIALS', 'DESIGN_FAST_MC_TRIALS', 'DESIGN_NPUPIL',
+           'DESIGN_NPIX', 'DESIGN_Q', 'cfg6_design_system', 'cfg6_glass_catalog',
+           'build_lens_design']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -1188,7 +1198,7 @@ class _LensAnalysis:
     the pupil grid and cfg2's MDFT plan.
     """
 
-    def __init__(self, sampling, N, fN, fused, dtype, device):
+    def __init__(self, sampling, N, fN, fused, dtype, device, system=None):
         from .x.raytracing import Sampling
         from .x.raytracing.adjoint import (OplSpreadHead, RmsSpotHead, seed_curvature,
                                            seed_despace)
@@ -1196,7 +1206,11 @@ class _LensAnalysis:
         self.dtype = config.precision if dtype is None else dtype
         self.device = resolve_device(device)
         self.sampling = Sampling.hex(CFG6_RINGS) if sampling is None else sampling
-        self.system = cfg6_system(ray_aiming='real')
+        if system is None:
+            self.system = cfg6_system(ray_aiming='real')
+        else:
+            self.system = system.copy()
+            self.system.ray_aiming = 'real'
         self.fields = list(self.system.fields)
         self.pupil = make_pupil(N, LENS_NMS, (0.0,) * len(LENS_NMS), dtype=self.dtype,
                                 device=self.device)
@@ -1256,10 +1270,14 @@ class _LensAnalysis:
         return coefs, rms, psfs, grads, values
 
 
-def build_lens_analysis(sampling=None, N=1024, fN=256, fused=True, dtype=None, device=None):
+def build_lens_analysis(sampling=None, N=1024, fN=256, fused=True, dtype=None, device=None,
+                        system=None):
     """A lens designer's analysis of cfg6 with real ray aiming.
 
-    ``cfg6_system(ray_aiming='real')``: 3 fields x ``sampling`` (default
+    ``cfg6_system(ray_aiming='real')``, or a copy of ``system`` set to
+    real aiming (its surfaces must be cfg6's in number and order: the
+    sensitivities' seeds name cfg6's three spheres and two glass
+    gaps): 3 fields x ``sampling`` (default
     ``Sampling.hex(64)``, 37,443 rays) launched onto the real stop, planned
     once with the exit pupil (``batch.plan_wavefront_fit``, the host half of
     ``device_wavefront_fit``).  A call fits each field's wavefront by its
@@ -1278,4 +1296,206 @@ def build_lens_analysis(sampling=None, N=1024, fN=256, fused=True, dtype=None, d
     one reverse pass per head (``adjoint.adjoint_gradient_multi``).
     Returns a callable giving (coefs, rms, psfs, grads (2, 5), values).
     """
-    return _LensAnalysis(sampling, N, fN, fused, dtype, device)
+    return _LensAnalysis(sampling, N, fN, fused, dtype, device, system)
+
+
+# the lens designer's path: cfg6 with a neutral coordinate break before its rear
+# sphere (the decentre tolerance's station), its design variables by row, the image
+# gap as the focus compensator, the DLS settings (sensitivity-scaled, adaptive
+# damping: with the default 1e-6 identity damping the first Gauss-Newton step leaves
+# the lens and the line search fails), the 1-sigma tolerances (curvature 1/mm,
+# lengths mm), the Monte Carlo sizes and seeds, and the pupil-field sizes
+DESIGN_DECENTRE_ROW = 3
+DESIGN_CURVATURE_ROWS = (1, 2, 4)
+DESIGN_THICKNESS_ROWS = (1, 2)
+DESIGN_FOCUS_ROW = 4
+DESIGN_SOLVE = {'maxiter': 10, 'damping_mode': 'sensitivity', 'damping': 1e-2,
+                'adaptive_damping': True}
+DESIGN_SIGMAS = {'curvature': 2e-5, 'thickness': 0.02, 'decenter': 0.02, 'focus': 0.05}
+DESIGN_MC_TRIALS, DESIGN_MC_SEED = 100, 0
+DESIGN_FAST_MC_TRIALS, DESIGN_FAST_MC_SEED = 2000, 1
+DESIGN_NPUPIL, DESIGN_NPIX, DESIGN_Q = 128, 512, 2
+
+
+def cfg6_glass_catalog():
+    """cfg6's two model glasses as a catalog: the prescription readers' database."""
+    from .x import materials as mat
+    return mat.Catalog.from_materials([mat.model_glass(nd, vd, name=name)
+                                       for nd, vd, name in CFG6_GLASSES])
+
+
+def cfg6_design_system():
+    """cfg6 with a neutral ('basic', zero) coordinate break at row
+    ``DESIGN_DECENTRE_ROW``, before the rear sphere: the station of the
+    designer's decentre tolerance.  It traces as cfg6 does."""
+    from .x.raytracing.lensdata import CoordBreak
+    system = cfg6_system()
+    system.lens.rows.insert(DESIGN_DECENTRE_ROW, CoordBreak())
+    return system
+
+
+@dataclass
+class LensTolerance:
+    """The tolerancing step's results (``_LensDesign.tolerance``)."""
+
+    table: object
+    monte_carlo: object
+    differential: object
+    expected_rms: float
+    compensator_motions: np.ndarray
+    fast_monte_carlo: object
+
+
+class _LensDesign:
+    """The lens designer's session on cfg6, one method per step.
+
+    ``prescription`` must run first: the system it reads from the Zemax
+    text is the one every later step optimises, tolerances and analyses.
+    """
+
+    def __init__(self, sampling, npupil, npix, dtype, device):
+        from .x.raytracing import Sampling
+        self.dtype = config.precision if dtype is None else dtype
+        self.device = resolve_device(device)
+        self.sampling = Sampling.hex(CFG6_RINGS) if sampling is None else sampling
+        self.npupil, self.npix = npupil, npix
+        self.source = cfg6_design_system()
+        self.database = cfg6_glass_catalog()
+        self.system = self.efl = None
+
+    @contextmanager
+    def configured(self):
+        """A context with ``config.precision`` and ``config.device`` set to this plan's."""
+        with precision_as(self.dtype), device_as(self.device):
+            yield
+
+    def prescription(self):
+        """Step 1: the design system written as Zemax and Code V text and read
+        back: (zmx text, seq text, system read from the .zmx, system read from
+        the .seq).  The .zmx system is the one the later steps work on; the EFL
+        constraint's target is its starting EFL."""
+        from .x.raytracing import (effective_focal_length, read_seq, read_zmx, write_seq,
+                                   write_zmx)
+        zmx, seq = write_zmx(self.source), write_seq(self.source)
+        with self.configured():
+            from_zmx = read_zmx(zmx, _is_text=True, database=self.database)
+            from_seq = read_seq(seq, _is_text=True, database=self.database)
+            self.efl = float(effective_focal_length(from_zmx.to_surfaces(), wvl=WVL))
+        from_zmx.opt.vary('curvature', DESIGN_CURVATURE_ROWS)
+        from_zmx.opt.vary('thickness', DESIGN_THICKNESS_ROWS)
+        self.system = from_zmx
+        return zmx, seq, from_zmx, from_seq
+
+    def problem(self):
+        """Step 2's Problem: the RMS spot radius at each field and the RMS
+        wavefront error at the edge field, every bundle on ``sampling``, with
+        the EFL held at its starting value; free are the three curvatures
+        and the two glass thicknesses; the residual Jacobian by the differentiable
+        engines (``gradient='auto'``)."""
+        from .x.raytracing import EFL, Problem, RmsSpotRadius, WavefrontRMS
+        fields = [self.system.field(k) for k in range(len(self.system.fields))]
+        operands = ([RmsSpotRadius(f, WVL, self.sampling) for f in fields]
+                    + [WavefrontRMS(fields[-1], WVL, self.sampling)])
+        return Problem(self.system, operands, constraints=[EFL(WVL, target=self.efl)],
+                       gradient='auto')
+
+    def optimise(self, maxiter=DESIGN_SOLVE['maxiter'], problem=None):
+        """Step 2: damped least squares (``DESIGN_SOLVE``); the lens is left at
+        the result.  Returns (result, problem)."""
+        problem = self.problem() if problem is None else problem
+        with self.configured():
+            result = problem.solve(**{**DESIGN_SOLVE, 'maxiter': maxiter})
+        return result, problem
+
+    def bundle(self, field_index):
+        """(P, S) host launch of one system field over ``sampling``."""
+        from .x.raytracing import launch
+        with self.configured():
+            return launch(self.system, self.system.field(field_index), WVL, self.sampling)
+
+    def perturbations(self, scale=1.0):
+        """The 6 tolerances, about the lens as it stands: the 3 curvatures, the
+        2 glass thicknesses and the rear sphere's y decentre, in the plane of
+        the fields (``DESIGN_SIGMAS``, each multiplied by ``scale``)."""
+        from .x.raytracing import Perturbation
+        s = {k: v * scale for k, v in DESIGN_SIGMAS.items()}
+        system = self.system
+        return ([Perturbation.normal(system, 'curvature', r, s['curvature'], name=f'c{r}')
+                 for r in DESIGN_CURVATURE_ROWS]
+                + [Perturbation.normal(system, 'thickness', r, s['thickness'], name=f't{r}')
+                   for r in DESIGN_THICKNESS_ROWS]
+                + [Perturbation.normal(system, 'decenter', DESIGN_DECENTRE_ROW,
+                                       s['decenter'], name='dy', component=1)])
+
+    def spot_merit(self, P, S):
+        """merit(system): the RMS spot radius about the centroid of the fixed
+        bundle (P, S), retraced through the system as it stands."""
+        from .x.raytracing import RmsSpotRadius
+        operand = RmsSpotRadius()
+
+        def merit(system):
+            return operand.value(system.trace(P, S, WVL), system, WVL)
+
+        return merit
+
+    def tolerance(self, trials=DESIGN_MC_TRIALS):
+        """Step 3: ``sensitivity_table`` and a seeded ``monte_carlo`` of the
+        edge field's spot merit, and the on-axis bundle's wavefront
+        differential with the image gap as the focus compensator, its
+        expected RMS, compensator motions and ``fast_monte_carlo``."""
+        from .x.raytracing import Perturbation
+        perts = self.perturbations()
+        merit = self.spot_merit(*self.bundle(len(self.system.fields) - 1))
+        P0, S0 = self.bundle(0)
+        focus = Perturbation.normal(self.system, 'thickness', DESIGN_FOCUS_ROW,
+                                    DESIGN_SIGMAS['focus'], name='focus')
+        with self.configured():
+            table = self.system.tol.sensitivity(perts, merit)
+            mc = self.system.tol.monte_carlo(perts, merit, trials, seed=DESIGN_MC_SEED)
+            wd = self.system.tol.wavefront(perts, P0, S0, WVL, compensators=[focus])
+            fast = wd.fast_monte_carlo(perts, DESIGN_FAST_MC_TRIALS, seed=DESIGN_FAST_MC_SEED)
+        return LensTolerance(table, mc, wd, wd.expected_rms(), wd.compensator_motions(), fast)
+
+    def diffraction(self):
+        """Step 4: ``pupil_field`` at each field (``npupil``^2 entrance grid) and
+        its ``pupil_field_psf`` (``npix``^2, ``DESIGN_Q``), and ``raytrace_prt`` of the edge
+        field's bundle: (pupil fields, [(psf, dx)], PRTResult)."""
+        from .x.raytracing import pupil_field, pupil_field_psf, raytrace_prt
+        P, S = self.bundle(len(self.system.fields) - 1)
+        with self.configured():
+            fields = [pupil_field(self.system, self.system.field(k), WVL, npupil=self.npupil)
+                      for k in range(len(self.system.fields))]
+            psfs = [pupil_field_psf(pf, npix=self.npix, Q=DESIGN_Q) for pf in fields]
+            prt = raytrace_prt(self.system, P, S, WVL)
+        return fields, psfs, prt
+
+    def analysis(self, N=1024, fN=256):
+        """Step 5: ``build_lens_analysis`` of the lens as it stands (real aiming)
+        and one call of it: (plan, its outputs)."""
+        la = build_lens_analysis(self.sampling, N, fN, dtype=self.dtype, device=self.device,
+                                 system=self.system)
+        return la, la()
+
+
+def build_lens_design(sampling=None, npupil=DESIGN_NPUPIL, npix=DESIGN_NPIX, dtype=None,
+                      device=None):
+    """A lens designer's session on cfg6: read, optimise, tolerance, diffract, analyse.
+
+    ``cfg6_design_system()`` (cfg6 with a neutral coordinate break before the
+    rear sphere) is written by ``write_zmx`` and ``write_seq`` and read back
+    with cfg6's model glasses as the database (``prescription``); the .zmx
+    system is then optimised by damped least squares (``optimise``: the RMS
+    spot radius at 0, 1 and 2 degrees and the edge field's RMS wavefront
+    error, each on ``sampling``, default ``Sampling.hex(64)``, 12,481 rays a
+    field; ``gradient='auto'``, reverse mode for the spots and forward mode
+    for the wavefront; the EFL held; ``DESIGN_SOLVE``), toleranced
+    (``tolerance``: 6 perturbations, a sensitivity table, a seeded Monte
+    Carlo, the wavefront differential of the on-axis bundle with the image
+    gap as compensator and its fast Monte Carlo), its pupil fields focused
+    (``diffraction``: ``npupil``^2 grids, ``npix``^2 PSFs at ``DESIGN_Q``, and the
+    polarization ray trace of the edge bundle) and analysed (``analysis``:
+    ``build_lens_analysis(system=...)``, the step that launches the Zernike
+    forward kernel, once a field).  Steps 1-4 run no hand-written kernel.
+    Every step computes in ``dtype`` on ``device``.
+    """
+    return _LensDesign(sampling, npupil, npix, dtype, device)

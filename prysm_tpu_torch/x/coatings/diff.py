@@ -23,7 +23,7 @@ from .stack import (
     _Evaluation,
     _char_matrix,
     _complex,
-    _eye2,
+    _identity_row,
     _layer_matrices,
     _prefix_products,
     _rtEH,
@@ -80,7 +80,7 @@ class ForwardEval:
     def L(self):
         """Forward products, (N + 1, *calc, 2, 2), the identity first."""
         if self._L is None:
-            self._L = torch.cat([_eye2(self.matrices).expand_as(self.matrices[:1]),
+            self._L = torch.cat([_identity_row(self.matrices),
                                  _prefix_products(self.matrices)])
         return self._L
 
@@ -114,7 +114,7 @@ def forward_eval(stack, wvl, theta0, pol):
 def _quantities_from_matrices(matrices, eta0, eta_sub):
     """(r, t, E, H) from per-layer characteristic matrices (N, *calc, 2, 2)."""
     mats = _stacked(matrices)
-    R = torch.cat([_suffix_products(mats), _eye2(mats).expand_as(mats[:1])])
+    R = torch.cat([_suffix_products(mats), _identity_row(mats)])
     return _rtEH(R, eta0, eta_sub)
 
 

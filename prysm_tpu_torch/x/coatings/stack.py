@@ -141,6 +141,12 @@ def _eye2(like=None):
     return torch.eye(2, dtype=like.dtype, device=like.device)
 
 
+def _identity_row(mats):
+    """The (1, *calc, 2, 2) identity beside a (N, *calc, 2, 2) stack of matrices,
+    N = 0 included (a bare interface: no layers)."""
+    return _eye2(mats).expand((1,) + tuple(mats.shape[1:]))
+
+
 def _prefix_products(mats):
     """P_k = M_0 M_1 ... M_k over the leading axis, by log-depth doubling."""
     P, k, n = mats, 1, mats.shape[0]
@@ -300,7 +306,7 @@ class _Evaluation:
         self.costs, self.betas, self.etas, self.matrices = _layer_matrices(
             self.ns, d.reshape((N,) + (1,) * len(calc)), n0, theta0, wvl, pol)
         self.R = torch.cat([_suffix_products(self.matrices),
-                            _eye2(self.matrices).expand_as(self.matrices[:1])])
+                            _identity_row(self.matrices)])
         self.M = self.R[0]
         self.r, self.t, self.E, self.H = _rtEH(self.R, self.eta0, self.eta_sub)
 

@@ -8,13 +8,17 @@ launch and aiming, the spot statistics of ``opt``, the batched merged
 trace, and the analysis cluster: ``listings``, ``sample_rx``, ``auto``,
 ``aberrations`` (Seidel sums), ``parabasal`` first order, ``analysis``
 (exit pupil, wavefront, fans, spots, distortion, colour, full-field
-maps), forward-mode ``_diff_raytrace`` and reverse-mode ``adjoint``.  A
-bundle traces as plain elementwise torch on the device of its rays and
-differentiates with autograd or ``torch.func.jvp``.
+maps), forward-mode ``_diff_raytrace`` and reverse-mode ``adjoint``; the
+design and tolerancing cluster: ``design`` (operands, ``Problem``,
+``build_problem``), ``tolerance`` (sensitivity tables, Monte Carlo),
+``wavefront_differential`` (Code V TOR style), ``field`` (pupil fields
+and polarization ray tracing); and ``io`` (Zemax .zmx and Code V .seq
+readers and writers).  A bundle traces as plain elementwise torch on the
+device of its rays and differentiates with autograd or
+``torch.func.jvp``.
 
-Not ported yet: ``field``, ``wavefront_differential``, ``design`` and
-``tolerance`` (ROADMAP Queue 1 item 21b), ``io`` and ``plotting`` (item
-21c); their names are not exported here.
+Not ported yet: ``plotting`` (ROADMAP Queue 1 item 21c); its names are
+not exported here.
 """
 from .spencer_and_murty import (  # NOQA
     DEFAULT_TOL_SAG,
@@ -181,6 +185,52 @@ from .analysis import (  # NOQA
     wavefront,
     wavefront_zernike_fit,
 )
+from .io import read_seq, read_zmx, write_seq, write_zmx  # NOQA
+from .wavefront_differential import (  # NOQA
+    WavefrontDifferential,
+    cumulative_probability,
+    wavefront_differential,
+)
+from .design import (  # NOQA
+    BFL,
+    Boresight,
+    Distortion,
+    EFL,
+    FieldCurvature,
+    Merit,
+    ParaxialImageDistance,
+    Problem,
+    RayHeightAt,
+    RmsSpotRadius,
+    Thickness,
+    TotalTrack,
+    WavefrontRMS,
+    ZernikeCoefficient,
+    build_problem,
+)
+from .tolerance import (  # NOQA
+    MonteCarloResult,
+    Perturbation,
+    SensitivityTable,
+    monte_carlo,
+    operand_as_merit,
+    sensitivity_table,
+)
+from .field import (  # NOQA
+    FieldTraceResult,
+    PRTResult,
+    PupilField,
+    amplitude_apodization,
+    interface_coefficients,
+    pupil_field,
+    pupil_field_psf,
+    pupil_field_to_wavefront,
+    raytrace_field,
+    raytrace_prt,
+    sine_space_coords,
+    surface_normals_from_trace,
+    unpolarized_amplitude,
+)
 from . import sample_rx  # NOQA
 from . import adjoint  # NOQA
 
@@ -237,4 +287,16 @@ __all__ = [
     'RayFanGrid', 'OPDFanGrid', 'SpotGrid', 'FullFieldGrid',
     'RitcheyChretien', 'RCPrescription', 'SeidelResult',
     'seidel_aberrations', 'paraxial_trace', 'sample_rx', 'adjoint',
+    'read_seq', 'read_zmx', 'write_seq', 'write_zmx',
+    'WavefrontDifferential', 'cumulative_probability', 'wavefront_differential',
+    'Merit', 'RmsSpotRadius', 'RayHeightAt', 'Boresight', 'EFL', 'BFL',
+    'ParaxialImageDistance', 'TotalTrack', 'Thickness', 'WavefrontRMS',
+    'ZernikeCoefficient', 'Distortion', 'FieldCurvature', 'Problem',
+    'build_problem', 'Perturbation', 'SensitivityTable', 'sensitivity_table',
+    'MonteCarloResult', 'monte_carlo', 'operand_as_merit',
+    'pupil_field', 'pupil_field_to_wavefront', 'pupil_field_psf',
+    'raytrace_field', 'raytrace_prt', 'PupilField', 'FieldTraceResult',
+    'PRTResult', 'amplitude_apodization', 'sine_space_coords',
+    'interface_coefficients', 'surface_normals_from_trace',
+    'unpolarized_amplitude',
 ]

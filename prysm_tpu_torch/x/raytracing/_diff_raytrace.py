@@ -662,6 +662,16 @@ def _refraction_matrix(pw):
     return torch.stack([torch.stack([one, zero]), torch.stack([-pw, one])])
 
 
+def _moved(value, eps, dots):
+    """value + eps . dots as a 0-d tensor in eps's dtype.
+
+    A host value becomes a tensor first: under ``torch.func.jvp`` a Python
+    float combined with a 0-d float32 tensor gives the tangent float64, and
+    the ABCD matrices stacked from such scalars then fail to multiply.
+    """
+    return _like(value, eps) + torch.sum(eps * dots)
+
+
 def _walk_matrix_traced(surfaces, wvl, eps, zdot, cdot, ndot, n_object, *,
                         start=0, end_index=None, include_end_surface=True):
     """Tensor ABCD walk with eps-perturbed z, curvature, and indices."""
@@ -674,26 +684,25 @@ def _walk_matrix_traced(surfaces, wvl, eps, zdot, cdot, ndot, n_object, *,
     # n_object may be the tensor n_at_stop of an upstream walk (stop-to-
     # image leg); _like keeps its tangent where float() would drop it
     n = _like(n_object, eps)
-    z_prev = float(surfaces[start].P[2]) + torch.sum(eps * zdot[start])
+    z_prev = _moved(surfaces[start].P[2], eps, zdot[start])
     for k in range(start, len(surfaces)):
         surf = surfaces[k]
         if k > end_index:
             break
-        z_k = float(surf.P[2]) + torch.sum(eps * zdot[k])
+        z_k = _moved(surf.P[2], eps, zdot[k])
         if k > start:
             t = z_k - z_prev
             T = torch.stack([torch.stack([torch.ones_like(t), t / n]),
                              torch.stack([torch.zeros_like(t), torch.ones_like(t)])])
             M = T @ M
         if include_end_surface or k != end_index:
-            c = _paraxial_curvature(surf) + torch.sum(eps * cdot[k])
+            c = _moved(_paraxial_curvature(surf), eps, cdot[k])
             if surf.typ == STYPE_REFLECT:
                 n_prime = -n
                 M = _refraction_matrix((n_prime - n) * c) @ M
                 n = n_prime
             elif surf.typ == STYPE_REFRACT:
-                n_prime = (float(surf.material.n(wvl))
-                           + torch.sum(eps * ndot[k]))
+                n_prime = _moved(surf.material.n(wvl), eps, ndot[k])
                 M = _refraction_matrix((n_prime - n) * c) @ M
                 n = n_prime
         z_prev = z_k
@@ -761,8 +770,8 @@ def _pupil_z_tangents(surfaces, wvl, seeds, *, stop_index, which):
                 end_index=k, include_end_surface=False)
             A_b = M_to[0, 0]
             B_b = M_to[0, 1]
-            z0 = float(surfaces[0].P[2]) + torch.sum(eps * zdot[0])
-            return z0 + B_b * n_object / A_b
+            z0 = _moved(surfaces[0].P[2], eps, zdot[0])
+            return z0 + B_b * _like(n_object, eps) / A_b
         M_to, n_at_stop = _walk_matrix_traced(
             surfaces, wvl, eps, zdot, cdot, ndot, n_object,
             end_index=k, include_end_surface=False)
@@ -770,8 +779,7 @@ def _pupil_z_tangents(surfaces, wvl, seeds, *, stop_index, which):
             surfaces, wvl, eps, zdot, cdot, ndot, n_at_stop, start=k)
         B_a = M_from[0, 1]
         D_a = M_from[1, 1]
-        z_last = (float(surfaces[-1].P[2])
-                  + torch.sum(eps * zdot[len(surfaces) - 1]))
+        z_last = _moved(surfaces[-1].P[2], eps, zdot[len(surfaces) - 1])
         return z_last - B_a * n_img / D_a
 
     # degenerate (telecentric) nominal geometry -> None, as in the JAX package

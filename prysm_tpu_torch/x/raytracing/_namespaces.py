@@ -1,14 +1,14 @@
 """Inner verb namespaces for OpticalSystem (opt / solve / analysis / ...).
 
 Counterpart of ``prysm_tpu/x/raytracing/_namespaces.py``.  Every verb of
-the JAX package is here.  A verb whose module is not ported yet (``design``,
-``tolerance`` and ``wavefront_differential``: ROADMAP Queue 1 item 21b;
-``plotting``: item 21c) raises NotImplementedError naming the module and
-its ROADMAP item; it never falls back to another computation.
+the JAX package is here.  A verb whose module is not ported yet
+(``plotting``: ROADMAP Queue 1 item 21c) raises NotImplementedError naming
+the module and its ROADMAP item; it never falls back to another
+computation.
 """
 
-# ROADMAP.md Queue 1 items that port the rest of x/raytracing/
-DESIGN_ITEM, PLOTTING_ITEM = '21b', '21c'
+# the ROADMAP.md Queue 1 item that ports the rest of x/raytracing/
+PLOTTING_ITEM = '21c'
 
 
 def not_ported(name, item):
@@ -78,12 +78,18 @@ class _OptNamespace:
     def problem(self, goal='spot', *, sampling=None, fields=None,
                 wavelengths=None, constraints=None):
         """Assemble a design.Problem over this system's free vector."""
-        not_ported('design.build_problem', DESIGN_ITEM)
+        from .design import build_problem
+        return build_problem(self._sys, goal, sampling=sampling,
+                             fields=fields, wavelengths=wavelengths,
+                             constraints=constraints)
 
     def optimize(self, goal='spot', *, sampling=None, fields=None,
                  wavelengths=None, constraints=None, **solve_kwargs):
         """Build and solve an optimization problem in one shot."""
-        not_ported('design.build_problem', DESIGN_ITEM)
+        prob = self.problem(goal, sampling=sampling, fields=fields,
+                            wavelengths=wavelengths,
+                            constraints=constraints)
+        return prob.solve(**solve_kwargs)
 
 
 class _SolveNamespace:
@@ -216,15 +222,21 @@ class _TolNamespace:
 
     def sensitivity(self, perturbations, merit, *, step=None):
         """Centered finite-difference scalar-merit sensitivity table."""
-        not_ported('tolerance.sensitivity_table', DESIGN_ITEM)
+        from .tolerance import sensitivity_table
+        return sensitivity_table(self._sys, perturbations, merit, step=step)
 
     def monte_carlo(self, perturbations, merit, n_trials, **kwargs):
         """Monte Carlo sampling of a scalar merit over perturbations."""
-        not_ported('tolerance.monte_carlo', DESIGN_ITEM)
+        from .tolerance import monte_carlo
+        return monte_carlo(self._sys, perturbations, merit, n_trials,
+                           **kwargs)
 
     def wavefront(self, perturbations, P, S, wavelength=None, **kwargs):
         """Wavefront differential (Code V TOR) for one launch bundle."""
-        not_ported('wavefront_differential.wavefront_differential', DESIGN_ITEM)
+        from .wavefront_differential import wavefront_differential
+        return wavefront_differential(
+            self._sys, perturbations, P, S,
+            self._sys.wavelength(wavelength), **kwargs)
 
     def inverse_sensitivity(self, J, budget, **kwargs):
         """Per-tolerance steps that fit a sensitivity Jacobian to a budget."""

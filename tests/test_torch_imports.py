@@ -100,6 +100,12 @@ SLICE11_MODULES = tuple(f'x.raytracing.{m}' for m in (
     'adjoint.engine', 'adjoint.tolerance_analysis'))
 
 
+# design, tolerancing, pupil fields and prescription IO: the lens designer's slice
+SLICE12_MODULES = tuple(f'x.raytracing.{m}' for m in (
+    'design', 'tolerance', 'wavefront_differential', 'field', 'io', 'io._indexing',
+    'io._common', 'io._surface_spec', 'io.zemax', 'io.codev'))
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
@@ -107,7 +113,7 @@ def _module_path(module):
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
                          + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES
-                         + SLICE11_MODULES)
+                         + SLICE11_MODULES + SLICE12_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
@@ -136,32 +142,72 @@ def _cfg6_on_cpu(monkeypatch):
     return steps.cfg6_system()
 
 
-@pytest.mark.parametrize('verb, item', [
-    (lambda s: s.plot.spots(), '21c'), (lambda s: s.opt.problem(), '21b'),
-    (lambda s: s.tol.monte_carlo([], None, 3), '21b'),
-    (lambda s: s.tol.wavefront([], None, None), '21b')])
+@pytest.mark.parametrize('verb, item', [(lambda s: s.plot.spots(), '21c')])
 def test_unported_verbs_raise_naming_the_roadmap_item(monkeypatch, verb, item):
-    """The verbs of ``design``, ``tolerance``, ``wavefront_differential`` (item
-    21b) and ``plotting`` (21c) raise, naming their item."""
+    """The verbs of ``plotting`` (item 21c) raise, naming their item."""
     system = _cfg6_on_cpu(monkeypatch)
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md Queue 1 item {item}$'):
         verb(system)
 
 
+def _design_verb_runs(pkg):
+    """system.opt.problem, system.tol.monte_carlo and system.tol.wavefront on cfg6
+    through ``pkg`` (the JAX package's or the port's raytracing): host float64 results."""
+    import importlib
+    from prysm_tpu_torch import steps
+    rt = importlib.import_module(f'{pkg}.x.raytracing')
+    mat = importlib.import_module(f'{pkg}.x.materials')
+    lens = rt.LensData()
+    media = [mat.model_glass(nd, vd, name=name) for nd, vd, name in steps.CFG6_GLASSES]
+    for c, t, m in zip(steps.CFG6_CURVATURES, steps.CFG6_THICKNESSES, media + [mat.air]):
+        lens.add(rt.Sphere(c), thickness=t, material=m)
+    system = rt.OpticalSystem(lens, aperture=rt.ApertureSpec.epd(steps.CFG6_EPD),
+                              fields=list(steps.CFG6_FIELDS), wavelengths=[steps.WVL],
+                              stop_index=steps.CFG6_STOP)
+    system.opt.vary('curvature', [1, 2, 3])
+    prob = system.opt.problem('spot', sampling=rt.Sampling.hex(3))
+    perts = [rt.Perturbation.normal(system, 'curvature', 1, 2e-5, name='c1'),
+             rt.Perturbation.normal(system, 'thickness', 2, 0.02, name='t2')]
+    jrt = importlib.import_module('prysm_tpu.x.raytracing')
+    P, S = (np.asarray(a) for a in jrt.launch(system, system.field(2), steps.WVL,
+                                              jrt.Sampling.hex(3)))
+    spot = rt.RmsSpotRadius()
+
+    def merit(s):
+        return spot.value(s.trace(P, S, steps.WVL), s, steps.WVL)
+
+    return {'problem': prob.residuals(prob.x0()),
+            'monte_carlo': system.tol.monte_carlo(perts, merit, 4, seed=3).merits,
+            'wavefront': system.tol.wavefront(perts, P, S).dW}
+
+
+@pytest.mark.parametrize('verb', ['problem', 'monte_carlo', 'wavefront'])
+def test_design_verbs_run_and_match_the_jax_package(monkeypatch, verb):
+    """The verbs of ``design``, ``tolerance`` and ``wavefront_differential`` (ROADMAP
+    item 21b, ported) run on the CPU and give the JAX package's float64 results."""
+    import torch
+    import jax
+    from prysm_tpu_torch.conf import config
+    jax.config.update('jax_enable_x64', True)
+    monkeypatch.setattr(config, '_device', 'cpu')
+    monkeypatch.setattr(config, '_precision', torch.float64)
+    got, want = _design_verb_runs('prysm_tpu_torch')[verb], _design_verb_runs('prysm_tpu')[verb]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+
+
 def test_slice11_modules_match_the_jax_package():
-    """x/raytracing holds the JAX package's analysis cluster; what it lacks is items
-    21b (design, tolerancing) and 21c (IO, plotting), and tolerance_analysis
-    imports pandas only when asked for a DataFrame."""
+    """x/raytracing holds every module of the JAX package's but ``plotting`` (ROADMAP
+    item 21c), and tolerance_analysis imports pandas only when asked for a DataFrame;
+    the raytracing package imports no matplotlib."""
     want = {p.relative_to(ROOT / 'prysm_tpu').as_posix()
             for p in (ROOT / 'prysm_tpu' / 'x' / 'raytracing').rglob('*.py')}
     got = {p.relative_to(ROOT / 'prysm_tpu_torch').as_posix()
            for p in (ROOT / 'prysm_tpu_torch' / 'x' / 'raytracing').rglob('*.py')}
     assert got <= want
-    missing = {p for p in want - got if not p.startswith('x/raytracing/io/')}
-    assert missing == {f'x/raytracing/{m}.py' for m in (
-        'design', 'tolerance', 'wavefront_differential', 'field', 'plotting')}
+    assert want - got == {'x/raytracing/plotting.py'}
     code = ('import sys, prysm_tpu_torch.x.raytracing.adjoint; '
-            'assert "pandas" not in sys.modules and "jax" not in sys.modules')
+            'assert "pandas" not in sys.modules and "jax" not in sys.modules '
+            'and "matplotlib" not in sys.modules')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
 
 

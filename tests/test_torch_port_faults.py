@@ -18,6 +18,16 @@ float32, and take the inputs the JAX package takes:
    so it grows the JAX package's design and not a rounding's choice.
 10. ``propagation.dft`` re-exports ``MDFT``, ``CZT``, ``FFTDFT`` and
    ``fftrange`` from ``fttools``, as the JAX package's module does.
+12. a thin-film ``Stack`` with no layers (a bare interface, as
+   ``x/raytracing/field`` builds for an uncoated metal or dielectric surface)
+   evaluates: ``stack_rt`` gives the Fresnel coefficients, as in the JAX
+   package, where it raised an IndexError.
+13. the paraxial pupil-z tangents (``_diff_raytrace.paraxial_exit_pupil_z_tangents``,
+   which the forward-mode wavefront of the design operands and the wavefront
+   differential call) run in float32: under ``torch.func.jvp`` a Python float
+   combined with a 0-d float32 tensor gives a float64 tangent, and the ABCD
+   matrices stacked from them raised a dtype error; they are float32 tangents
+   within float32 rounding of the float64 ones.
 """
 import numpy as np
 import pytest
@@ -185,3 +195,33 @@ def test_fault10_dft_reexports_the_fttools_names(name):
     tft = importlib.import_module('prysm_tpu_torch.fttools')
     assert getattr(jdft, name) is getattr(importlib.import_module('prysm_tpu.fttools'), name)
     assert getattr(tdft, name) is getattr(tft, name)
+
+
+@pytest.mark.parametrize('substrate', [1.5, 0.96 + 6.7j])
+@pytest.mark.parametrize('pol', ['s', 'p'])
+def test_fault12_a_stack_without_layers_is_a_bare_interface(substrate, pol):
+    theta = np.linspace(0.0, 1.3, 9)
+    r, tr = tcoat.stack_rt(tcoat.Stack([], [], substrate_index=substrate), 0.55, theta, pol)
+    jr, jt = jcoat.stack_rt(jcoat.Stack([], [], substrate_index=substrate), 0.55,
+                            jnp.asarray(theta), pol)
+    assert _rel(r, np.asarray(jr)) <= 1e-14 and _rel(tr, np.asarray(jt)) <= 1e-14
+    rs, _ = tcoat.stack_rt(tcoat.Stack([], [], substrate_index=substrate), 0.55, 0.0, 's')
+    assert abs(complex(rs) - (1 - substrate) / (1 + substrate)) <= 1e-15
+
+
+@pytest.mark.parametrize('which, stop', [('exit', 1), ('entrance', 3)])
+def test_fault13_paraxial_pupil_tangents_run_in_float32(monkeypatch, which, stop):
+    from prysm_tpu_torch import steps
+    from prysm_tpu_torch.x.raytracing import _diff_raytrace as dr
+    from prysm_tpu_torch.x.raytracing.adjoint.seeds import seed_curvature, seed_despace
+    fn = getattr(dr, f'paraxial_{which}_pupil_z_tangents')
+    seeds = ([seed_curvature(j) for j in steps.LENS_SPHERES]
+             + [seed_despace(moved) for moved in steps.LENS_THICKNESSES])
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        monkeypatch.setattr(config, '_precision', dtype)
+        surfaces = steps.cfg6_system().to_surfaces()
+        out[dtype] = fn(surfaces, steps.WVL, seeds, stop_index=stop)
+    f64, f32 = out[torch.float64], out[torch.float32]
+    assert f32.dtype == np.float32 and np.abs(f64).max() > 0
+    assert np.abs(f32 - f64).max() <= 1e-4 * np.abs(f64).max()
