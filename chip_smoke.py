@@ -181,7 +181,22 @@ Phases, each of which raises on a failed check:
       f64; and one call of ``build_lens_analysis`` on the result in f32, which
       launches the Zernike forward kernel 3 times and nothing else; the first
       four steps launch no hand-written kernel;
-   the paths of c-e, g-j and m run no hand-written kernel: their launch
+   p. the mesh patterns of ``parallel`` (``steps.build_parallel_patterns``)
+      over a world-size-1 NCCL process group (a file rendezvous in a
+      temporary directory, an explicit timeout; destroyed after phase 4):
+      the broadband wavelength x tile phase-retrieval step and its hybrid
+      (inter-host x intra-host) mesh variant (cfg2's 1024^2 pupil and NMS6
+      mode stack, 8 wavelengths over 0.50-0.60 um, the spectral MDFT to
+      256^2), the level-sharded multi-resolution Babinet frame (phase 3e's,
+      3 levels of 96^2) and its field gradient, the contraction-sharded MDFT
+      (1024^2 -> 256^2) and its round trip through a charge-2 vortex, the
+      distributed FFT focus and unfocus at 1024^2, Q=2, and its gradient
+      step, the overlapped per-chunk gradient (per-wavelength frames, 2
+      chunks), cfg6's sharded wavefront fit (3 fields x hex(64), 36 modes)
+      and its sharded merged trace at hex(256), each against its serial
+      counterpart in the port in f32 (1e-5) and in f64 (1e-10) on the
+      card;
+   the paths of c-e, g-j, m and p run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
@@ -218,7 +233,10 @@ Phases, each of which raises on a failed check:
    designer's DLS linearisation (residuals and 'auto' Jacobian), wavefront
    differential and one pupil-field PSF (wall, device ms, busy share, device
    kernels, hand-written launches), a Monte Carlo trial and phase 3o's solve,
-   tolerancing, diffraction and analysis steps on the host clock;
+   tolerancing, diffraction and analysis steps on the host clock; each mesh
+   pattern in turns with its serial counterpart (wall ms, device ms, busy
+   share, device kernels, the device ms in NCCL kernels, hand-written
+   launches per call);
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -227,6 +245,7 @@ import os
 # one card: the first visible one, and the process sees no other
 os.environ['CUDA_VISIBLE_DEVICES'] = os.environ.get('CUDA_VISIBLE_DEVICES', '0').split(',')[0]
 
+import datetime
 import json
 import math
 import statistics
@@ -234,6 +253,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import torch  # noqa: E402 (after the card is chosen)
 
@@ -412,6 +432,14 @@ DESIGN_BARS = {'io': 1e-12, 'io_digits': 1e-4, 'fd': 1e-6, 'residuals': 1.1e-3,
                'jacobian': 1e-3, 'iterates': 1e-9, 'efl': 1e-9, 'wd_fd': 1e-4, 'mc': 1e-9,
                'opd': 0.17, 'psf': 0.2, 'psf_axis': 0.29, 'jones': 1e-5, 'psf_focus': 2e-5,
                'opd64': 1.8e-9, 'psf64': 1.6e-9, 'focus64': 1e-10, 'jones64': 1e-12}
+# phase 3p: each mesh pattern against its serial counterpart, max |a - b| / max |b|, in
+# f32 at 1e-5 and in f64 at 1e-10. The JAX package's dry-run bars (__graft_entry__.py:
+# losses and fields 1e-4, gradients 1e-3) allow for 8 devices' reduction orders; at world
+# size 1 the sharded and serial paths reassociate only inside autograd and the transforms,
+# 2.1e-6 at most in f32 on an H100 (PERF.md), so the f32 bar is five times that
+PATTERN_BAR, PATTERN_BAR64 = 1e-5, 1e-10
+# phase 4: the patterns' timing runs (the raytrace patterns plan on the host per call)
+PATTERN_RUNS = {'raytrace_fit': 4, 'merged_trace': 4}
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -2586,6 +2614,73 @@ def design_timing_lines(smi, design, problem, res, perts, bundle0, merit_fn, sec
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
+@contextmanager
+def nccl_group():
+    """A world-size-1 NCCL process group over a file rendezvous, destroyed on exit."""
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group('nccl', init_method=f'file://{tmp}/rendezvous', rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_parallel(dev):
+    """Every mesh pattern of ``parallel`` at full width over the NCCL group
+    (``steps.build_parallel_patterns``), against its serial counterpart in f32 and in f64
+    on the card, with no hand-written launch; returns the f32 patterns for phase 4."""
+    import torch.distributed as dist
+    from prysm_tpu_torch.steps import build_parallel_patterns
+    require(dist.get_backend() == 'nccl' and dist.get_world_size() == 1,
+            'phase 3p runs on a world-size-1 NCCL group')
+    built, checks = {}, []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        patterns = build_parallel_patterns(dev, dtype)
+        reset_launches()
+        for name, pattern in patterns.items():
+            got, want = synced(pattern.sharded), synced(pattern.serial)
+            require(set(got) == set(want), f'{name}: outputs {sorted(got)} vs {sorted(want)}')
+            for key in want:
+                require(got[key].device == dev and got[key].shape == want[key].shape,
+                        f'{name} {key}: {got[key].device} {tuple(got[key].shape)}')
+                checks.append((f'{name} {json.dumps(pattern.axes)} {key} {tag}',
+                               rel(got[key], want[key]),
+                               PATTERN_BAR64 if dtype == torch.float64 else PATTERN_BAR))
+        no_kernel_launches(f'{tag} mesh patterns')
+        built[dtype] = patterns
+    run_checks(checks, width=58)
+    return built[torch.float32]
+
+
+def parallel_timing(smi, patterns):
+    """Phase 4's lines for the mesh patterns at world size 1: each pattern in turns with its
+    serial counterpart, wall ms, device ms, busy share, device kernels, the device ms in
+    NCCL kernels and the hand-written launches per call."""
+    for name, pattern in patterns.items():
+        runs = PATTERN_RUNS.get(name, 20)
+        calls = {f'{name}_sharded': pattern.sharded, f'{name}_serial': pattern.serial}
+        timing = step_ms(calls, runs=runs, warmup=min(runs, 3))
+        for key, fn in calls.items():
+            breakdown = device_breakdown(fn, steps=min(runs, 5), match='nccl')
+            reset_launches()
+            synced(fn)
+            launched = launch_total()
+            if breakdown is None:
+                print(f'{smi} | pattern {key}_ms {timing[key]:.4f}; device ms not measured '
+                      f'(every profiler trace came back empty); hand-written {launched}',
+                      flush=True)
+                continue
+            busy, kernels_per, top, nccl = breakdown
+            print(f'{smi} | pattern {key}_ms {timing[key]:.4f}; device_ms_per_call {busy:.4f} '
+                  f'busy share {busy / timing[key]:.3f}; device kernels per call '
+                  f'{kernels_per:.0f}, nccl device ms {nccl:.4f}, hand-written {launched}; '
+                  'top: ' + '; '.join(f'{k} {v:.4f}' for k, v in top[:3]), flush=True)
+
+
 def device_ms(calls, runs=25):
     """Median device time of one call, in ms, over runs of ``calls`` back to back.
 
@@ -2655,9 +2750,11 @@ def step_ms(fns, runs=40, warmup=5):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def device_breakdown(fn, steps=10, top=5, tries=3):
+def device_breakdown(fn, steps=10, top=5, tries=3, match=None):
     """(device ms per step, device kernels per step, the kernels that take the most) from
-    torch.profiler; None if every trace lost its device records (see kernels_per_call)."""
+    torch.profiler; None if every trace lost its device records (see kernels_per_call).
+    With ``match``, a fourth value: the device ms per step of the kernels whose names hold
+    it (case ignored)."""
     synced(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
@@ -2675,8 +2772,12 @@ def device_breakdown(fn, steps=10, top=5, tries=3):
         return None
     total_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return total_ms, sum(e.count for e in events) / steps, [
+    out = total_ms, sum(e.count for e in events) / steps, [
         (e.key[:72], e.self_device_time_total / 1e3 / steps) for e in events[:top]]
+    if match is None:
+        return out
+    return *out, sum(e.self_device_time_total for e in events
+                     if match in e.key.lower()) / 1e3 / steps
 
 
 def device_line(smi, label, fn, wall, steps, unit='call'):
@@ -3046,14 +3147,21 @@ def run(start, stamp, cpu_ref, design_ref):
           f'the lens analysis of the result) {stamp()}', flush=True)
     design = phase_lens_design(dev, design_ref, pieces[WFC_NMS])
     torch.cuda.synchronize()
+    with nccl_group():
+        print(f'phase 3p: mesh patterns over NCCL at world size 1 (broadband wl x ty and '
+              f'hybrid, multi-resolution Babinet, contraction MDFT, distributed FFT, '
+              f'overlapped gradient, raytrace fit and trace) {stamp()}', flush=True)
+        patterns = phase_parallel(dev)
+        torch.cuda.synchronize()
 
-    print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
-    kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
-                           metrology, film, wfc)
-    design_timing(smi, designs, walls, retrieval)
-    lens_timing(smi, *lens)
-    design_timing_lines(smi, *design)
-    torch.cuda.synchronize()
+        print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
+        kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
+                               metrology, film, wfc)
+        design_timing(smi, designs, walls, retrieval)
+        lens_timing(smi, *lens)
+        design_timing_lines(smi, *design)
+        parallel_timing(smi, patterns)
+        torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 
     rows = [{'name': name, 'route': 'cuda', 'source': f'prysm_tpu_torch/csrc/{src}',

@@ -11,16 +11,16 @@ import torch
 from .conf import resolve_device
 from .detector import Detector
 from .fttools import MDFT, CZT, FFTDFT
-from .parallel import SpectralMDFT
+from .parallel import SpectralMDFT, StackedMultiRes
 from .propagation import MultiResolutionExecutor
 from .segmented import CompositeHexagonalAperture
 from .steps import Pupil
 
 __all__ = ['mdft_from_numpy', 'czt_from_numpy', 'fftdft_from_numpy', 'plan_from_numpy',
            'multiresolution_from_numpy', 'composite_aperture_from_numpy', 'pupil_from_numpy',
-           'spectral_mdft_from_numpy', 'detector_from_numpy', 'surfaces_from_numpy',
-           'interferogram_from_numpy', 'scheme_from_numpy', 'stack_from_numpy',
-           'optimizer_state_from_numpy', 'dm_from_numpy']
+           'spectral_mdft_from_numpy', 'stacked_multires_from_numpy', 'detector_from_numpy',
+           'surfaces_from_numpy', 'interferogram_from_numpy', 'scheme_from_numpy',
+           'stack_from_numpy', 'optimizer_state_from_numpy', 'dm_from_numpy']
 
 
 def _tensor(a, device, dtype=None):
@@ -122,6 +122,18 @@ def spectral_mdft_from_numpy(Ex_re, Ex_im, Ey_re, Ey_im, norm, pupil_dx, focal_d
     return SpectralMDFT(Ex=torch.complex(_tensor(Ex_re, dev), _tensor(Ex_im, dev)),
                         Ey=torch.complex(_tensor(Ey_re, dev), _tensor(Ey_im, dev)),
                         norm=_tensor(norm, dev), pupil_dx=pupil_dx, focal_dx=focal_dx)
+
+
+def stacked_multires_from_numpy(Ex_re, Ex_im, Ey_re, Ey_im, norm, maskwin_re, maskwin_im,
+                                device=None):
+    """A ``parallel.StackedMultiRes`` from the JAX stack's leaves ((L, M, N) parts, (L,) norm)."""
+    dev = resolve_device(device)
+
+    def pair(re, im):
+        return torch.complex(_tensor(re, dev), _tensor(im, dev))
+
+    return StackedMultiRes(Ex=pair(Ex_re, Ex_im), Ey=pair(Ey_re, Ey_im), norm=_tensor(norm, dev),
+                           maskwin=pair(maskwin_re, maskwin_im))
 
 
 def detector_from_numpy(dark_current, read_noise, bias, fwc, conversion_gain, bits,

@@ -54,7 +54,13 @@ Counterparts, without any timing harness, of
   and Code V text and read back, optimised by damped least squares over
   the curvatures and glass thicknesses with an EFL constraint, then
   toleranced (sensitivity table, Monte Carlo, wavefront differential),
-  its pupil fields focused to PSFs, polarization-traced, and analysed.
+  its pupil fields focused to PSFs, polarization-traced, and analysed;
+* the mesh patterns of ``parallel`` at full width over the ranks of an
+  initialised process group: the broadband wavelength x tile step and its
+  hybrid-mesh variant, the level-sharded multi-resolution Babinet, the
+  contraction-sharded MDFT, the distributed FFT and its gradient step, the
+  overlapped gradient and the sharded raytrace fit and trace, each beside
+  its serial counterpart.
 
 ``build_cfg1_step`` and ``build_cfg2_step`` return a callable that takes
 the coefficients and returns the loss and its coefficient gradient (and,
@@ -75,6 +81,8 @@ returns the two refinements and the synthesis, and
 ``build_phase_retrieval_lbfgsb`` one that returns the governed run's
 result, and ``build_wavefront_control`` one that takes the actuators and
 the coefficients and returns the loss and both gradients.
+``build_parallel_patterns`` returns {name: ``MeshPattern``}, whose
+``sharded`` and ``serial`` callables each return {output: tensor}.
 """
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -124,7 +132,8 @@ __all__ = ['NMS6', 'COEFS6', 'WVL', 'EFL', 'Pupil', 'make_pupil', 'entry',
            'DESIGN_CURVATURE_ROWS', 'DESIGN_THICKNESS_ROWS', 'DESIGN_FOCUS_ROW', 'DESIGN_SOLVE',
            'DESIGN_SIGMAS', 'DESIGN_MC_TRIALS', 'DESIGN_FAST_MC_TRIALS', 'DESIGN_NPUPIL',
            'DESIGN_NPIX', 'DESIGN_Q', 'cfg6_design_system', 'cfg6_glass_catalog',
-           'build_lens_design']
+           'build_lens_design', 'PARALLEL_WVLS', 'PARALLEL_MR', 'PARALLEL_TRACE_RINGS',
+           'MeshPattern', 'build_parallel_patterns']
 
 NMS6 = ((2, 0), (2, 2), (2, -2), (3, 1), (3, -1), (4, 0))
 COEFS6 = (20.0, -10.0, 8.0, 5.0, -4.0, 3.0)
@@ -1499,3 +1508,246 @@ def build_lens_design(sampling=None, npupil=DESIGN_NPUPIL, npix=DESIGN_NPIX, dty
     Every step computes in ``dtype`` on ``device``.
     """
     return _LensDesign(sampling, npupil, npix, dtype, device)
+
+
+# the mesh patterns: cfg2's pupil and focal grid over 8 wavelengths; phase 3e's
+# Babinet frame with every level on one focal shape (N, focal samples, levels);
+# cfg6's fit over the lens analysis's 36 modes, and its merged trace at hex(256)
+PARALLEL_WVLS = tuple(float(w) for w in np.linspace(0.50, 0.60, 8))
+PARALLEL_MR = (256, 96, 3)
+PARALLEL_TRACE_RINGS = 256
+
+
+@dataclass(frozen=True)
+class MeshPattern:
+    """One mesh pattern: its mesh's axes, and two callables returning {output: tensor}.
+
+    ``sharded`` runs the ``parallel`` function; ``serial`` its single-card
+    counterpart, cut to this rank's block where the sharded output is one.
+    """
+    axes: dict
+    sharded: object
+    serial: object
+
+
+def _pattern_inputs(N, fN, dtype, dev):
+    """cfg2's pupil, its NMS6 mode stack and field, and the 8-wavelength spectral plan."""
+    from .mathops import cis
+    pupil = make_pupil(N, dtype=dtype, device=dev)
+    modes = zernike_nm_seq(NMS6, pupil.r, pupil.t)
+    opd = sum_of_2d_modes(modes, pupil.coefs)
+    field = pupil.amp * cis(opd * (2 * np.pi / (WVL * 1e3)))
+    wvls = torch.tensor(PARALLEL_WVLS, dtype=dtype, device=dev)
+    weights = torch.full_like(wvls, 1 / len(PARALLEL_WVLS))
+    plan = plan_mdft_spectral(pupil.dx, (N, N), 0.25, fN, PARALLEL_WVLS, EFL,
+                              dtype=complex_for(dtype), device=dev)
+    return pupil, modes, field, wvls, weights, plan
+
+
+def _grads(fn, *leaves):
+    """(fn's value, its gradients) with respect to leaves (detached copies)."""
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        value = fn(*leaves)
+        return value.detach(), torch.autograd.grad(value, leaves)
+
+
+def _broadband_patterns(pupil, modes, wvls, weights, plan, world):
+    from .mathops import cis
+    from .parallel import broadband_psf, make_hybrid_mesh, make_mesh, shard_broadband_step
+    from .parallel.overlap import overlapped_spectral_grad
+    wl = 2 if world % 2 == 0 else 1
+    amp, c = pupil.amp, pupil.coefs
+    I_meas = broadband_psf(c * 0.5, amp, modes, wvls, weights, plan)
+
+    def serial():
+        loss, (grad,) = _grads(
+            lambda cc: torch.sum((broadband_psf(cc, amp, modes, wvls, weights, plan)
+                                  - I_meas) ** 2), c)
+        return {'loss': loss, 'grad': grad}
+
+    def sharded(mesh):
+        step = shard_broadband_step(mesh, plan, amp, modes, wvls, weights, I_meas)
+
+        def run():
+            loss, grad = step(c)
+            return {'loss': loss, 'grad': grad}
+        return run
+
+    def per_wavelength(cc):
+        opd = torch.tensordot(cc, modes, dims=([0], [0]))
+        E = plan(amp[None] * cis((2 * np.pi / (wvls * 1e3))[:, None, None] * opd[None]))
+        return E.real * E.real + E.imag * E.imag
+
+    I_pw = per_wavelength(c * 0.5)
+
+    def overlap_serial():
+        loss, (grad,) = _grads(
+            lambda cc: torch.sum(weights[:, None, None] * (per_wavelength(cc) - I_pw) ** 2), c)
+        return {'loss': loss, 'grad': grad}
+
+    ov_axes = {'wl': world}
+    ostep = overlapped_spectral_grad(make_mesh(ov_axes), plan, amp, modes, wvls, weights, I_pw,
+                                     n_chunks=2)
+
+    def overlap():
+        loss, grad = ostep(c)
+        return {'loss': loss, 'grad': grad}
+
+    axes = {'wl': wl, 'ty': world // wl}
+    return {'broadband': MeshPattern(axes, sharded(make_mesh(axes)), serial),
+            'hybrid': MeshPattern(axes, sharded(make_hybrid_mesh({'wl': wl},
+                                                                 {'ty': world // wl})), serial),
+            'overlap': MeshPattern(ov_axes, overlap, overlap_serial)}
+
+
+def _babinet_pattern(dtype, dev, world):
+    from .parallel import make_mesh, shard_multires_babinet, stack_multiresolution
+    from .propagation import prepare_multiresolution, to_fpm_and_back_multiresolution
+    N, samples, levels = PARALLEL_MR
+    pdx = DIAMETER / N
+    x, y = make_xy_grid(N, diameter=DIAMETER, dtype=dtype, device=dev)
+    r = torch.hypot(x, y)
+    E = antialias(circle_sdf(1.0, r), pdx).to(complex_for(dtype))
+    lyot = antialias(circle_sdf(0.9, r), pdx)
+    lam_d = WVL * EFL / 2.0
+    mre = prepare_multiresolution(pdx, (N, N), lam_d / 2, samples, WVL, EFL, num_levels=levels,
+                                  fine_samples=samples, dtype=complex_for(dtype), device=dev)
+    disk = lambda xf, yf: (torch.hypot(xf, yf) <= 3 * lam_d).to(xf.dtype)  # noqa: E731
+    axes = {'lv': world}
+    babinet = shard_multires_babinet(
+        make_mesh(axes), stack_multiresolution(mre, lambda xf, yf: 1 - disk(xf, yf),
+                                               babinet=True), lyot)
+
+    def serial_babinet(a):
+        return lyot * (a - to_fpm_and_back_multiresolution(a, disk, mre))
+
+    def run(fn):
+        out = fn(E)
+        _, (grad,) = _grads(lambda a: torch.sum(fn(a).abs() ** 2), E)
+        return {'out': out, 'grad': grad}
+
+    return MeshPattern(axes, lambda: run(babinet), lambda: run(serial_babinet))
+
+
+def _transform_patterns(pupil, field, fN, dtype, world):
+    from .parallel import make_mesh, shard_mdft_contraction, shard_mdft_contraction_roundtrip
+    from .parallel._collectives import shard
+    from .parallel.fft import (plan_distributed_focus, plan_distributed_unfocus,
+                               shard_focus_grad_step)
+    from .propagation import focus, unfocus
+    N = field.shape[-1]
+    plan = make_cfg2_plan(pupil, fN, matmul_precision=None)
+    c = torch.arange(fN, dtype=torch.float64) - (fN - 1) / 2
+    yy, xx = torch.meshgrid(c, c, indexing='ij')
+    vortex = torch.polar(torch.ones_like(xx), 2 * torch.atan2(yy, xx)).to(field.device,
+                                                                          plan.Ex.dtype)
+    ct_axes, fy_axes = {'ct': world}, {'fy': world}
+    ct, fy = make_mesh(ct_axes), make_mesh(fy_axes)
+    forward = shard_mdft_contraction(ct, plan)
+    roundtrip = shard_mdft_contraction_roundtrip(ct, plan, focal_factor=vortex)
+
+    def rows(x, mesh, axis):
+        """This rank's rows of a serial result that the sharded path returns as a block."""
+        return shard(x, mesh, axis, 0)
+
+    def contraction_serial():
+        return {'focal': plan(field),
+                'roundtrip': rows(plan.adjoint(plan(field) * vortex), ct, 'ct')}
+
+    Q = 2
+    I_meas = focus(field, Q).abs() ** 2 * 0.9
+    fwd = plan_distributed_focus(fy, (N, N), Q, dtype=dtype)
+    inv = plan_distributed_unfocus(fy, (N, N), Q, dtype=dtype)
+    gstep = shard_focus_grad_step(fy, (N, N), Q, dtype=dtype)
+
+    def fft_sharded():
+        loss, (gre, gim) = gstep(field.real, field.imag, I_meas)
+        return {'focus': fwd(field), 'unfocus': inv(field), 'loss': loss, 'grad_re': gre,
+                'grad_im': gim}
+
+    def fft_loss(re, im):
+        F = focus(torch.complex(re, im), Q)
+        return torch.sum((F.real * F.real + F.imag * F.imag - I_meas) ** 2)
+
+    def fft_serial():
+        loss, (gre, gim) = _grads(fft_loss, field.real, field.imag)
+        return {'focus': rows(focus(field, Q), fy, 'fy'),
+                'unfocus': rows(unfocus(field, Q), fy, 'fy'), 'loss': loss,
+                'grad_re': rows(gre, fy, 'fy'), 'grad_im': rows(gim, fy, 'fy')}
+
+    return {'contraction': MeshPattern(ct_axes, lambda: {'focal': forward(field),
+                                                         'roundtrip': roundtrip(field)},
+                                       contraction_serial),
+            'fft': MeshPattern(fy_axes, fft_sharded, fft_serial)}
+
+
+def _raytrace_patterns(dtype, dev, world):
+    from .parallel import make_mesh, shard_merged_trace_rate, shard_wavefront_fit
+    from .x.raytracing import Sampling
+    from .x.raytracing.batch import device_wavefront_fit, merged_trace
+    system = cfg6_system()
+    axes = {'rays': world}
+    rays = make_mesh(axes)
+    fit_rings, trace = Sampling.hex(CFG6_RINGS), Sampling.hex(PARALLEL_TRACE_RINGS)
+
+    def configured(fn):
+        def run():
+            with precision_as(dtype), device_as(dev):
+                return fn()
+        return run
+
+    def fit():
+        coefs, rms = shard_wavefront_fit(rays, system, LENS_NMS, sampling=fit_rings)
+        return {'coefs': coefs, 'rms': rms}
+
+    def fit_serial():
+        coefs, rms = device_wavefront_fit(system, LENS_NMS, sampling=fit_rings, device=dev)
+        return {'coefs': coefs, 'rms': rms}
+
+    def landed():
+        return {'landed': shard_merged_trace_rate(rays, system, WVL, trace)[0]}
+
+    def landed_serial():
+        # the sharded bundle pads each field's rays to a multiple of the ranks with
+        # copies of its ray 0, and sums them too
+        _, (res,) = merged_trace(system, wavelengths=[WVL], sampling=trace, device=dev)
+        final = torch.nan_to_num(res.P[-1]).reshape(len(system.fields), -1, 3)
+        pad = -final.shape[1] % world
+        return {'landed': final.sum(dim=(0, 1)) + pad * final[:, 0].sum(dim=0)}
+
+    return {'raytrace_fit': MeshPattern(axes, configured(fit), configured(fit_serial)),
+            'merged_trace': MeshPattern(axes, configured(landed), configured(landed_serial))}
+
+
+def build_parallel_patterns(device='cuda', dtype=torch.float32, N=1024, fN=256):
+    """Every mesh pattern of ``parallel`` at full width, beside its serial counterpart.
+
+    Needs an initialised default process group (NCCL for a CUDA ``device``,
+    gloo for the CPU) of world size w; meshes: broadband ``wl`` (2 if w is
+    even, else 1) x ``ty``, its hybrid ``{'wl'} x {'ty'}``, and 1-D meshes of
+    w ranks for the other patterns (a size that does not divide raises
+    ValueError).  Sizes (N = 1024, fN = 256 by default): cfg2's N^2 pupil and
+    NMS6 mode stack at ``COEFS6``, the 8 wavelengths of ``PARALLEL_WVLS``
+    (0.50-0.60 um) with equal weights, the spectral MDFT to fN^2 at cfg2's
+    0.25 um, ``I_meas`` from 0.5 x the
+    coefficients (per wavelength for the overlapped gradient, 2 chunks);
+    phase 3e's 256^2 Babinet frame (a 3 lambda/D occulting disk, Lyot stop
+    0.9) through 3 levels of 96^2, forward and the gradient of sum |out|^2
+    with respect to the field; cfg2's MDFT to fN^2 (full-precision
+    products), forward and a round trip through a charge-2 vortex; the
+    distributed focus and unfocus of cfg2's field at Q=2 and the focus-grad
+    step against 0.9 x its PSF; cfg6's wavefront fit over ``LENS_NMS`` at 3
+    fields x hex(64) and its merged trace at hex(256), traced in ``dtype``.
+    Returns {name: MeshPattern}.
+    """
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    world = dist.get_world_size()
+    with precision_as(dtype), device_as(dev):
+        pupil, modes, field, wvls, weights, plan = _pattern_inputs(N, fN, dtype, dev)
+        patterns = _broadband_patterns(pupil, modes, wvls, weights, plan, world)
+        patterns['babinet'] = _babinet_pattern(dtype, dev, world)
+        patterns.update(_transform_patterns(pupil, field, fN, dtype, world))
+        patterns.update(_raytrace_patterns(dtype, dev, world))
+    return patterns

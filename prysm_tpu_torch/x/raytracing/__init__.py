@@ -12,13 +12,11 @@ maps), forward-mode ``_diff_raytrace`` and reverse-mode ``adjoint``; the
 design and tolerancing cluster: ``design`` (operands, ``Problem``,
 ``build_problem``), ``tolerance`` (sensitivity tables, Monte Carlo),
 ``wavefront_differential`` (Code V TOR style), ``field`` (pupil fields
-and polarization ray tracing); and ``io`` (Zemax .zmx and Code V .seq
-readers and writers).  A bundle traces as plain elementwise torch on the
-device of its rays and differentiates with autograd or
-``torch.func.jvp``.
-
-Not ported yet: ``plotting`` (ROADMAP Queue 1 item 21c); its names are
-not exported here.
+and polarization ray tracing); ``io`` (Zemax .zmx and Code V .seq
+readers and writers); and ``plotting`` (layouts and analysis plots, host
+numpy and matplotlib, imported only when a function draws).  A bundle
+traces as plain elementwise torch on the device of its rays and
+differentiates with autograd or ``torch.func.jvp``.
 """
 from .spencer_and_murty import (  # NOQA
     DEFAULT_TOL_SAG,
@@ -230,6 +228,23 @@ from .field import (  # NOQA
     sine_space_coords,
     surface_normals_from_trace,
     unpolarized_amplitude,
+)
+from . import plotting  # NOQA
+from .plotting import (  # NOQA
+    plot_ray_paths,
+    plot_optics,
+    layout,
+    plot_transverse_ray_aberration,
+    plot_wave_aberration_fan,
+    plot_spot_diagram,
+    plot_field_curvature,
+    plot_distortion,
+    plot_chromatic_focal_shift,
+    plot_lateral_color,
+    plot_full_field,
+    plot_ray_fans,
+    plot_opd_fans,
+    plot_spots,
 )
 from . import sample_rx  # NOQA
 from . import adjoint  # NOQA

@@ -1,21 +1,8 @@
 """Inner verb namespaces for OpticalSystem (opt / solve / analysis / ...).
 
-Counterpart of ``prysm_tpu/x/raytracing/_namespaces.py``.  Every verb of
-the JAX package is here.  A verb whose module is not ported yet
-(``plotting``: ROADMAP Queue 1 item 21c) raises NotImplementedError naming
-the module and its ROADMAP item; it never falls back to another
-computation.
+Counterpart of ``prysm_tpu/x/raytracing/_namespaces.py``: every verb of
+the JAX package, bound to the system.
 """
-
-# the ROADMAP.md Queue 1 item that ports the rest of x/raytracing/
-PLOTTING_ITEM = '21c'
-
-
-def not_ported(name, item):
-    """Raise NotImplementedError for ``name`` of x/raytracing/, not ported yet."""
-    raise NotImplementedError(
-        f'x/raytracing/{name.split(".")[0]}.py ({name}) is not ported to '
-        f'prysm_tpu_torch yet: ROADMAP.md Queue 1 item {item}')
 
 
 class _OptNamespace:
@@ -166,50 +153,83 @@ class _PlotNamespace:
 
     def layout_2d(self, **kwargs):
         """2D system layout with per-field ray fans."""
-        not_ported('plotting.layout', PLOTTING_ITEM)
+        from .plotting import layout
+        return layout(self._sys, **kwargs)
 
     def spots(self, *, fields=None, wavelengths=None, sampling=None,
               epd=None, reference='centroid', **kwargs):
         """Spot-diagram grid over fields and wavelengths."""
-        not_ported('plotting.plot_spots', PLOTTING_ITEM)
+        from .analysis import spot_diagrams
+        from .plotting import plot_spots
+        grid = spot_diagrams(self._sys, fields, wavelengths,
+                             sampling=sampling, epd=epd,
+                             reference=reference)
+        return plot_spots(grid, **kwargs)
 
     def ray_fans(self, *, fields=None, wavelengths=None, nrays=21,
                  epd=None, distribution='uniform', reference='chief',
                  **kwargs):
         """Transverse ray-aberration fan grid."""
-        not_ported('plotting.plot_ray_fans', PLOTTING_ITEM)
+        from .analysis import ray_aberration_fans
+        from .plotting import plot_ray_fans
+        grid = ray_aberration_fans(self._sys, fields, wavelengths,
+                                   nrays=nrays, epd=epd,
+                                   distribution=distribution,
+                                   reference=reference)
+        return plot_ray_fans(grid, **kwargs)
 
     def opd_fans(self, *, fields=None, wavelengths=None, nrays=21,
                  epd=None, distribution='uniform', stop_index=None,
                  output='waves', **kwargs):
         """OPD fan grid."""
-        not_ported('plotting.plot_opd_fans', PLOTTING_ITEM)
+        from .analysis import opd_fans
+        from .plotting import plot_opd_fans
+        grid = opd_fans(self._sys, fields, wavelengths, nrays=nrays,
+                        epd=epd, distribution=distribution,
+                        stop_index=stop_index, output=output)
+        return plot_opd_fans(grid, **kwargs)
 
     def field_curvature(self, *, fields=None, wavelength=None,
                         samples=101, **kwargs):
         """S/T field-curvature plot."""
-        not_ported('plotting.plot_field_curvature', PLOTTING_ITEM)
+        from .plotting import plot_field_curvature
+        return plot_field_curvature(self._sys, fields, wavelength,
+                                    samples=samples, **kwargs)
 
     def distortion(self, *, fields=None, wavelength=None, epd=None,
                    samples=101, distortion_type='f-tan', **kwargs):
         """Percent-distortion plot."""
-        not_ported('plotting.plot_distortion', PLOTTING_ITEM)
+        from .plotting import plot_distortion
+        return plot_distortion(self._sys, fields, wavelength, epd=epd,
+                               samples=samples,
+                               distortion_type=distortion_type, **kwargs)
 
     def chromatic_focal_shift(self, *, wavelengths=None, samples=101,
                               focus='best', epd=None, **kwargs):
         """Chromatic focal-shift plot."""
-        not_ported('plotting.plot_chromatic_focal_shift', PLOTTING_ITEM)
+        from .plotting import plot_chromatic_focal_shift
+        return plot_chromatic_focal_shift(self._sys, wavelengths,
+                                          samples=samples, focus=focus,
+                                          epd=epd, **kwargs)
 
     def lateral_color(self, *, fields=None, wavelengths=None, epd=None,
                       samples=101, **kwargs):
         """Lateral-color plot."""
-        not_ported('plotting.plot_lateral_color', PLOTTING_ITEM)
+        from .plotting import plot_lateral_color
+        return plot_lateral_color(self._sys, fields, wavelengths,
+                                  epd=epd, samples=samples, **kwargs)
 
     def full_field(self, *, metric='rms spot', samples=15, max_field=None,
                    wavelengths=None, sampling=None, epd=None,
                    stop_index=None, **kwargs):
         """Full-field metric map."""
-        not_ported('plotting.plot_full_field', PLOTTING_ITEM)
+        from .analysis import full_field
+        from .plotting import plot_full_field
+        grid = full_field(self._sys, metric, samples=samples,
+                          max_field=max_field, wavelengths=wavelengths,
+                          sampling=sampling, epd=epd,
+                          stop_index=stop_index)
+        return plot_full_field(grid, **kwargs)
 
 
 class _TolNamespace:

@@ -106,6 +106,12 @@ SLICE12_MODULES = tuple(f'x.raytracing.{m}' for m in (
     'io._common', 'io._surface_spec', 'io.zemax', 'io.codev'))
 
 
+# the mesh patterns over torch.distributed and the raytracing plots
+SLICE13_MODULES = ('parallel', 'parallel._collectives', 'parallel.mesh', 'parallel.sharding',
+                   'parallel.coronagraph', 'parallel.mdft_contraction', 'parallel.fft',
+                   'parallel.raytrace', 'parallel.overlap', 'x.raytracing.plotting')
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
@@ -113,7 +119,7 @@ def _module_path(module):
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
                          + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES
-                         + SLICE11_MODULES + SLICE12_MODULES)
+                         + SLICE11_MODULES + SLICE12_MODULES + SLICE13_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
@@ -144,10 +150,16 @@ def _cfg6_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize('verb, item', [(lambda s: s.plot.spots(), '21c')])
 def test_unported_verbs_raise_naming_the_roadmap_item(monkeypatch, verb, item):
-    """The verbs of ``plotting`` (item 21c) raise, naming their item."""
+    """No verb raises for an unported ROADMAP item any more: the last ones, of
+    ``plotting`` (item 21c), draw; and no module of the port keeps a ``not_ported``."""
+    import matplotlib
+    matplotlib.use('Agg')
+    from matplotlib import pyplot as plt
     system = _cfg6_on_cpu(monkeypatch)
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md Queue 1 item {item}$'):
-        verb(system)
+    fig, axs = verb(system)
+    plt.close(fig)
+    assert axs.shape == (1, len(system.fields))
+    assert not [path for path in PORT_FILES if 'not_ported' in path.read_text()], item
 
 
 def _design_verb_runs(pkg):
@@ -196,19 +208,39 @@ def test_design_verbs_run_and_match_the_jax_package(monkeypatch, verb):
 
 
 def test_slice11_modules_match_the_jax_package():
-    """x/raytracing holds every module of the JAX package's but ``plotting`` (ROADMAP
-    item 21c), and tolerance_analysis imports pandas only when asked for a DataFrame;
+    """x/raytracing holds every module of the JAX package's (``plotting``, ROADMAP item
+    21c, included), and tolerance_analysis imports pandas only when asked for a DataFrame;
     the raytracing package imports no matplotlib."""
     want = {p.relative_to(ROOT / 'prysm_tpu').as_posix()
             for p in (ROOT / 'prysm_tpu' / 'x' / 'raytracing').rglob('*.py')}
     got = {p.relative_to(ROOT / 'prysm_tpu_torch').as_posix()
            for p in (ROOT / 'prysm_tpu_torch' / 'x' / 'raytracing').rglob('*.py')}
-    assert got <= want
-    assert want - got == {'x/raytracing/plotting.py'}
+    assert got == want
     code = ('import sys, prysm_tpu_torch.x.raytracing.adjoint; '
             'assert "pandas" not in sys.modules and "jax" not in sys.modules '
             'and "matplotlib" not in sys.modules')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_slice13_modules_match_the_jax_package():
+    """parallel/ holds every module of the JAX package's and exports its names but the two
+    HLO readers of ``overlap``; the whole package now mirrors the JAX package's files but
+    ``ops/dispatch.py`` (the port has no mode switch)."""
+    import prysm_tpu_torch.parallel as par
+    import prysm_tpu_torch.parallel.overlap as overlap
+    want = {p.name for p in (ROOT / 'prysm_tpu' / 'parallel').glob('*.py')}
+    got = {p.name for p in (ROOT / 'prysm_tpu_torch' / 'parallel').glob('*.py')}
+    assert got - {'_collectives.py'} == want
+    init = ast.parse((ROOT / 'prysm_tpu' / 'parallel' / '__init__.py').read_text())
+    names = {alias.name for node in ast.walk(init) if isinstance(node, ast.ImportFrom)
+             for alias in node.names}
+    assert len(names) == 19 and not [n for n in names if not hasattr(par, n)]
+    assert overlap.__all__ == ['overlapped_spectral_grad']
+    jax_files = {p.relative_to(ROOT / 'prysm_tpu').as_posix()
+                 for p in (ROOT / 'prysm_tpu').rglob('*.py')}
+    port_files = {p.relative_to(ROOT / 'prysm_tpu_torch').as_posix()
+                  for p in (ROOT / 'prysm_tpu_torch').rglob('*.py')}
+    assert jax_files - port_files == {'ops/dispatch.py'}
 
 
 def test_ported_solves_run_on_the_cpu(monkeypatch):
