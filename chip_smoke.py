@@ -196,7 +196,25 @@ Phases, each of which raises on a failed check:
       and its sharded merged trace at hex(256), each against its serial
       counterpart in the port in f32 (1e-5) and in f64 (1e-10) on the
       card;
-   the paths of c-e, g-j, m and p run no hand-written kernel: their launch
+   q. the five examples (``prysm_tpu_torch.examples``: the LOWFS sensor at
+      256^2 -> 64^2, the dark-hole dig at 128^2 -> 64^2, the phase
+      retrieval at 256^2 -> 96^2, the doublet's design and tolerances, the
+      V-coat's refinement), each ``main`` at its default size in f32 and in
+      f64: every run against the examples' marks (tests/test_examples.py);
+      f64 against the same runs on the CPU (a spawn worker process: the
+      LOWFS reconstructor and frame, the dark energy and its gradient at
+      zero, the first 3 iterates of each optimizer, the lens's start merit,
+      EFL and curvature tolerances, the coating's reflectance and merit) at
+      1e-9; f32 against f64 at the suggested tier or twice the JAX
+      package's own f32 figure (``probes/examples_cpu_probe.py``), where
+      that is larger;
+   r. the card tier: ``tests/test_torch_chip_*.py`` (the counterparts of
+      ``tests_tpu/``'s 43 functions, 55 cases) under ``pytest --noconftest``
+      in a process of its own on the card, which must exit 0 with every
+      collected case passed, none failed, errored or skipped, and launch the
+      Zernike forward, full backward and noise kernels it holds to their
+      twins;
+   the paths of c-e, g-j, m, p and q run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
    and busy share; ms per kernel call cold (inputs evicted from L2) and
@@ -236,7 +254,13 @@ Phases, each of which raises on a failed check:
    tolerancing, diffraction and analysis steps on the host clock; each mesh
    pattern in turns with its serial counterpart (wall ms, device ms, busy
    share, device kernels, the device ms in NCCL kernels, hand-written
-   launches per call);
+   launches per call); the examples in f32: the LOWFS closed-loop frame
+   (wall per frame by the slope between loops of 64 and 1024 frames, frames
+   per second, device ms, busy share and device kernels per frame), one
+   dark-hole and one retrieval evaluation (value and gradient: wall ms,
+   device ms, busy share, device kernels), and on the host clock the dark
+   hole's run, the retrieval example's run, the lens example's solve and
+   the coating example's refinement;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -440,6 +464,38 @@ DESIGN_BARS = {'io': 1e-12, 'io_digits': 1e-4, 'fd': 1e-6, 'residuals': 1.1e-3,
 PATTERN_BAR, PATTERN_BAR64 = 1e-5, 1e-10
 # phase 4: the patterns' timing runs (the raytrace patterns plan on the host per call)
 PATTERN_RUNS = {'raytrace_fit': 4, 'merged_trace': 4}
+# phase 3q: the five examples (prysm_tpu_torch.examples) at their default sizes. The marks
+# are the f64 ones tests/test_examples.py holds the JAX package's examples to; both
+# precisions on the card meet them (1 / suppression against 1 / 50)
+EXAMPLE_MARKS = {'lowfs': 0.5, 'suppression': 50.0, 'retrieval': 1e-6, 'efl': 1e-5, 'R': 0.006}
+# f64 on the card against the same run on the CPU: the first optimizer iterates (as phase
+# 3o holds its DLS) and every compared value, 1e-9 relative
+EXAMPLE_ITERATES, EXAMPLE_CARD_CPU_BAR = 3, 1e-9
+# the lens's curvature tolerances; its decentre and tilt ones come from the boresight head at
+# the on-axis field, whose gradient the centroid's rounding sets (ROADMAP watch-list)
+EXAMPLE_CURVATURES = slice(0, 3)
+# the JAX package's own f32 figure of each example at its default size on the CPU, against
+# its f64 run (probes/examples_cpu_probe.py; the names say what, example_figures how)
+EXAMPLE_JAX_F32 = {'lowfs_error': 0.254, 'lowfs_R': 1.58e-06, 'lowfs_I0': 7.49e-07,
+                   'dark_e0': 1.88e-07, 'dark_g0': 1.09e-06, 'dark_suppression': 2.04e-06,
+                   'retrieval_error': 0.0, 'lens_m0': 7.34e-05, 'lens_efl': 4.92e-09,
+                   'lens_tol': 0.00399, 'coating_R0': 1.97e-07, 'coating_merit': 4.34e-07}
+# phase 3q's f32 bars, as phase 3n's: the suggested tier of the quantity's kind, or twice the
+# JAX package's figure where that is larger.  The tiers: the gradient tier 1e-3
+# (tests/test_f32_tier.py:65-99) for the LOWFS reconstructor (the Jacobian's pseudo-inverse)
+# and the dark hole's gradient; the PSF tier 2e-5 of peak (:47-62) for the LOWFS frame; the
+# Babinet tier 1e-4 (:140-171) for the dark energy and the suppression (sums of a Babinet
+# frame's intensities); the retrieval's f64 mark (the JAX f32 run recovers its float32 truth
+# exactly, a figure of 0); phase 3o's f32 residual bar for the lens's start merit (1.1e-3);
+# phase 3j's start-merit bar for the coating's reflectance and merit (2.6e-6).  The worst
+# LOWFS error, the solved EFL and the lens's tolerances have no tier: twice the JAX figure
+EXAMPLE_FLOORS = {'lowfs_R': 1e-3, 'lowfs_I0': 2e-5, 'dark_e0': 1e-4, 'dark_g0': 1e-3,
+                  'dark_suppression': 1e-4, 'retrieval_error': 1e-6, 'lens_m0': 1.1e-3,
+                  'coating_R0': 2.6e-6, 'coating_merit': 2.6e-6}
+EXAMPLE_BARS = {k: max(2 * v, EXAMPLE_FLOORS.get(k, 0.0)) for k, v in EXAMPLE_JAX_F32.items()}
+# phase 3r: the card tier, tests/test_torch_chip_*.py (the 7 files of tests_tpu/, 43
+# functions, 55 cases), run by pytest on the card within this many seconds
+TIER_FILES, TIER_MIN_CASES, TIER_TIMEOUT_S = 7, 55, 600
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -465,10 +521,8 @@ def kall_fp32_ops(nms):
 
 def card():
     """The card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(['nvidia-smi', f'--id={os.environ["CUDA_VISIBLE_DEVICES"]}',
-                          '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    from prysm_tpu_torch.examples import card_name
+    return card_name(torch.device('cuda', 0))
 
 
 def rel(a, b):
@@ -2611,6 +2665,264 @@ def design_timing_lines(smi, design, problem, res, perts, bundle0, merit_fn, sec
 
 
 # ---------------------------------------------------------------------------
+# phase 3q: the five examples, the port's user entry points
+# ---------------------------------------------------------------------------
+
+def examples_run(dev, dtype):
+    """Each example (``prysm_tpu_torch.examples``) at its default size on ``dev`` in
+    ``dtype``: its ``main``'s result and wall time, and what phase 3q compares besides:
+    the LOWFS reconstructor and frame, the dark energy and its gradient at zero, the first
+    optimizer iterates of the dark hole, the retrieval, the lens solve and the coating
+    refinement, the lens's start merit, solved EFL and tolerances, and the coating's start
+    reflectance and refined merit.  Host numpy and floats."""
+    import numpy as np
+    from prysm_tpu_torch.conf import device_as, precision_as
+    from prysm_tpu_torch.examples import (coating_design, coronagraph_dark_hole, lens_design,
+                                          lowfs_realtime, phase_retrieval)
+    from prysm_tpu_torch.x import optym
+    from prysm_tpu_torch.x import raytracing as rt
+    from prysm_tpu_torch.x.optym.problem import to_host
+    from prysm_tpu_torch.x.raytracing.design import _TraceCache
+
+    def first_iterates(fg, x0):
+        res = optym.run_until(optym.PrysmLBFGSB(fg, x0), optym.MaxIterations(EXAMPLE_ITERATES))
+        return [to_host(r.x_next) for r in res.records]
+
+    out, walls = {}, {}
+
+    def main_of(name, module):
+        t0 = time.perf_counter()
+        value = module.main(device=dev)
+        if torch.device(dev).type == 'cuda':
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return value
+
+    with precision_as(dtype), device_as(dev):
+        out['lowfs'] = main_of('lowfs', lowfs_realtime)
+        R, I0 = lowfs_realtime.reconstructor(lowfs_realtime.build(device=dev))
+        out['R'], out['I0'] = to_host(R), to_host(I0)
+
+        out['suppression'] = main_of('dark_hole', coronagraph_dark_hole)
+        _, fg, _, nms = coronagraph_dark_hole.dark_hole(device=dev)
+        zeros = torch.zeros(len(nms), dtype=dtype, device=dev)
+        e0, g0 = fg(zeros)
+        out['e0'], out['g0'] = float(e0), to_host(g0)
+        out['dark_iterates'] = first_iterates(fg, zeros)
+
+        out['retrieval'] = float(main_of('retrieval', phase_retrieval))
+        fg, truth, _ = phase_retrieval.retrieval(device=dev)
+        out['retrieval_iterates'] = first_iterates(fg, torch.zeros_like(truth))
+
+        system = main_of('lens', lens_design)
+        out['efl'] = float(rt.EFL()(system, _TraceCache(system)))
+        system = lens_design.doublet()
+        _, out['m0'], res = lens_design.optimize(system)
+        out['lens_iterates'] = [np.asarray(h['x'], np.float64)
+                                for h in res.history[:EXAMPLE_ITERATES]]
+        out['tol'] = np.asarray(lens_design.tolerances(system)[1], np.float64)
+
+        out['R1'] = float(main_of('coating', coating_design))
+        out['R0'] = float(coating_design.band_reflectance(coating_design.v_coat()))
+        res = coating_design.refine(coating_design.v_coat())
+        out['coating_merit'] = res.merit
+        out['coating_iterates'] = [to_host(r.x_next)
+                                   for r in res.optimizer_result.records[:EXAMPLE_ITERATES]]
+    out['walls'] = walls
+    return out
+
+
+def examples_cpu_reference():
+    """The five examples in f64 on the host's CPU, run in a worker process (their prints
+    kept out of the script's output): what phase 3q holds the card's f64 runs to."""
+    import contextlib
+    import io
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    with contextlib.redirect_stdout(io.StringIO()):
+        return examples_run('cpu', torch.float64)
+
+
+def example_figures(f32, f64):
+    """An f32 run's figures against the f64 run of the same package, by EXAMPLE_JAX_F32's
+    names (``probes/examples_cpu_probe.py`` computes the JAX package's the same way)."""
+    return {
+        'lowfs_error': f32['lowfs'],
+        'lowfs_R': np_rel(f32['R'], f64['R']),
+        'lowfs_I0': np_rel(f32['I0'], f64['I0']),
+        'dark_e0': np_rel(f32['e0'], f64['e0']),
+        'dark_g0': np_rel(f32['g0'], f64['g0']),
+        'dark_suppression': abs(f32['suppression'] / f64['suppression'] - 1),
+        'retrieval_error': f32['retrieval'],
+        'lens_m0': np_rel(f32['m0'], f64['m0']),
+        'lens_efl': abs(f32['efl'] - 100.0),
+        'lens_tol': np_rel(f32['tol'][EXAMPLE_CURVATURES], f64['tol'][EXAMPLE_CURVATURES]),
+        'coating_R0': np_rel(f32['R0'], f64['R0']),
+        'coating_merit': np_rel(f32['coating_merit'], f64['coating_merit']),
+    }
+
+
+def phase_examples(dev, cpu_ref):
+    """The five examples on the card at their default sizes, f32 and f64: the f64 runs
+    against the examples' marks and against the same runs on the CPU (the worker's), the
+    f32 runs against the marks and against f64 at twice the JAX package's f32 figures."""
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        print(f'  {str(dtype)[6:]}:', flush=True)
+        runs[dtype] = examples_run(dev, dtype)
+    r32, r64 = runs[torch.float32], runs[torch.float64]
+    cpu = cpu_ref.get(timeout=600)
+    for dtype, run in runs.items():
+        print(f'  {str(dtype)[6:]} mains (host wall s): '
+              + ', '.join(f'{k} {v:.2f}' for k, v in run['walls'].items()), flush=True)
+    print(f'  the CPU reference (f64, worker) mains (host wall s): '
+          + ', '.join(f'{k} {v:.2f}' for k, v in cpu['walls'].items()), flush=True)
+    checks = []
+    for tag, run in (('f64', r64), ('f32', r32)):
+        checks += [
+            (f'LOWFS worst error {tag} (nm, mark)', run['lowfs'], EXAMPLE_MARKS['lowfs']),
+            (f'dark hole 1 / suppression {tag} (mark 1/50)', 1 / run['suppression'],
+             1 / EXAMPLE_MARKS['suppression']),
+            (f'retrieval error {tag} (nm, mark)', run['retrieval'], EXAMPLE_MARKS['retrieval']),
+            (f'lens |EFL - 100| {tag} (mm, mark)', abs(run['efl'] - 100.0),
+             EXAMPLE_MARKS['efl']),
+            (f'coating band R {tag} (mark)', run['R1'], EXAMPLE_MARKS['R']),
+        ]
+    iterates = EXAMPLE_CARD_CPU_BAR
+    checks += [
+        ('f64 card vs CPU: LOWFS R (rel)', np_rel(r64['R'], cpu['R']), iterates),
+        ('f64 card vs CPU: LOWFS I0 (rel)', np_rel(r64['I0'], cpu['I0']), iterates),
+        ('f64 card vs CPU: LOWFS worst error (rel)', np_rel(r64['lowfs'], cpu['lowfs']),
+         iterates),
+        ('f64 card vs CPU: dark energy at zero (rel)', np_rel(r64['e0'], cpu['e0']), iterates),
+        ('f64 card vs CPU: its gradient (rel)', np_rel(r64['g0'], cpu['g0']), iterates),
+        (f'f64 card vs CPU: dark hole iterates 1-{EXAMPLE_ITERATES} (rel)',
+         np_rel(r64['dark_iterates'], cpu['dark_iterates']), iterates),
+        (f'f64 card vs CPU: retrieval iterates 1-{EXAMPLE_ITERATES} (rel)',
+         np_rel(r64['retrieval_iterates'], cpu['retrieval_iterates']), iterates),
+        ('f64 card vs CPU: lens start merit (rel)', np_rel(r64['m0'], cpu['m0']), iterates),
+        (f'f64 card vs CPU: lens DLS iterates 1-{EXAMPLE_ITERATES} (rel)',
+         np_rel(r64['lens_iterates'], cpu['lens_iterates']), iterates),
+        ('f64 card vs CPU: lens EFL (rel)', np_rel(r64['efl'], cpu['efl']), iterates),
+        ('f64 card vs CPU: lens curvature tolerances (rel)',
+         np_rel(r64['tol'][EXAMPLE_CURVATURES], cpu['tol'][EXAMPLE_CURVATURES]), iterates),
+        ('f64 card vs CPU: coating start R (rel)', np_rel(r64['R0'], cpu['R0']), iterates),
+        (f'f64 card vs CPU: coating iterates 1-{EXAMPLE_ITERATES} (rel)',
+         np_rel(r64['coating_iterates'], cpu['coating_iterates']), iterates),
+        ('f64 card vs CPU: coating refined merit (rel)',
+         np_rel(r64['coating_merit'], cpu['coating_merit']), iterates),
+    ]
+    figures = example_figures(r32, r64)
+    checks += [(f'f32 vs f64 {name} (JAX f32 {EXAMPLE_JAX_F32[name]:.3g})', figures[name],
+                EXAMPLE_BARS[name]) for name in EXAMPLE_JAX_F32]
+    run_checks(checks, width=66)
+    print(f'  lens decentre / tilt tolerances (the boresight head at the on-axis field, set '
+          f'by the centroid\'s rounding; printed, not held): f64 {r64["tol"][3:]}, f32 '
+          f'{r32["tol"][3:]}, CPU {cpu["tol"][3:]}', flush=True)
+    print(f'  phase 3q took {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def examples_timing(smi, dev):
+    """Phase 4's lines for the examples in f32 at their default sizes: the LOWFS closed-loop
+    frame (wall by the slope, frames/s, device ms, busy share, device kernels per frame),
+    one dark-hole and one retrieval evaluation (value and gradient), and on the host clock
+    the dark hole's 120 iterations, the retrieval example's run, the lens example's solve
+    and the coating example's refine."""
+    from prysm_tpu_torch.conf import device_as, precision_as
+    from prysm_tpu_torch.examples import (coating_design, coronagraph_dark_hole, lens_design,
+                                          lowfs_realtime, phase_retrieval)
+    from prysm_tpu_torch.x import optym
+    with precision_as(torch.float32), device_as(dev):
+        setup = lowfs_realtime.build(device=dev)
+        R, I0 = lowfs_realtime.reconstructor(setup)
+        per_frame = lowfs_realtime.frame_seconds(setup, R, I0)
+        c = torch.tensor([1.0, -0.5, 0.3, 0.2, -0.1, 0.4], device=dev)
+        device_line(smi, f'lowfs_frame_us {per_frame * 1e6:.3f} (host wall, the slope of the '
+                    f'best of 3 closed loops of 64 and 1024 frames); '
+                    f'lowfs_frames_per_s {1 / per_frame:.1f}; device_ms_per_frame',
+                    lambda: c + 1e-6 * lowfs_realtime.sense(
+                        lowfs_realtime.render(c, **setup), R, I0),
+                    per_frame * 1e3, steps=20, unit='frame')
+
+        _, dark_fg, _, nms = coronagraph_dark_hole.dark_hole(device=dev)
+        zeros = torch.zeros(len(nms), device=dev)
+        retrieval_fg, truth, _ = phase_retrieval.retrieval(device=dev)
+        timed_lines(smi, {'dark_hole_fg': lambda: dark_fg(zeros),
+                          'retrieval_fg': lambda: retrieval_fg(torch.zeros_like(truth))},
+                    runs=20, warmup=3, steps=5)
+
+        def host_s(fn):
+            t0 = time.perf_counter()
+            out = synced(fn)
+            return out, time.perf_counter() - t0
+
+        opt = optym.PrysmLBFGSB(dark_fg, zeros)
+        res, dark_s = host_s(lambda: optym.run_until(opt, optym.MaxIterations(120)))
+        print(f'{smi} | dark_hole_run_s {dark_s:.3f} (host wall; {res.nit} iterations of at '
+              f'most 120, {dark_s / max(res.nit, 1) * 1e3:.2f} ms an iteration, {opt.nfev} '
+              f'evaluations)', flush=True)
+        opt = optym.PrysmLBFGSB(retrieval_fg, torch.zeros_like(truth))
+        res, retrieval_s = host_s(lambda: optym.run_until(opt, optym.AnyGovernor([
+            optym.MaxIterations(60), optym.GradientTolerance(1e-12)])))
+        (_, _, lens), lens_s = host_s(lambda: lens_design.optimize(lens_design.doublet()))
+        coat, coat_s = host_s(lambda: coating_design.refine(coating_design.v_coat()))
+        print(f'{smi} | retrieval_run_s {retrieval_s:.3f} ({res.nit} iterations, {opt.nfev} '
+              f'evaluations); lens_solve_s {lens_s:.3f} ({lens.nit} DLS iterations, setup '
+              f'included); coating_refine_s {coat_s:.3f} ({coat.nit} L-BFGS-B iterations) '
+              f'(host wall, f32)', flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3r: the card tier, tests/test_torch_chip_*.py on the card
+# ---------------------------------------------------------------------------
+
+def phase_card_tier():
+    """Run the card tier in a pytest process on the card; fail unless it exits 0 with every
+    collected case passed (at least TIER_MIN_CASES) and none failed, errored or skipped, and
+    unless it launched every kernel it tests.  Returns the kernels' launches in its run."""
+    import glob
+    import tempfile
+    import xml.etree.ElementTree as ET
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, 'tests', 'test_torch_chip_*.py')))
+    require(len(files) == TIER_FILES, f'the card tier has {len(files)} files, not {TIER_FILES}')
+    with tempfile.TemporaryDirectory() as tmp:
+        report, log = os.path.join(tmp, 'tier.xml'), os.path.join(tmp, 'launches.jsonl')
+        env = {**os.environ, 'PRYSM_TORCH_TIER_DEVICE': 'cuda',
+               'PRYSM_TORCH_TIER_LAUNCHES': log}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-m', 'pytest', '--noconftest', '-p',
+                               'no:cacheprovider', '-q', f'--junitxml={report}', *files],
+                              cwd=root, env=env, capture_output=True, text=True,
+                              timeout=TIER_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(report):
+            print(proc.stdout[-6000:], proc.stderr[-3000:], sep='\n', flush=True)
+        require(os.path.exists(report), f'the card tier wrote no report (exit {proc.returncode})')
+        suite = ET.parse(report).getroot()
+        suite = suite if suite.tag == 'testsuite' else suite.find('testsuite')
+        counts = {k: int(suite.get(k, 0)) for k in ('tests', 'failures', 'errors', 'skipped')}
+        launches = {}
+        if os.path.exists(log):
+            with open(log) as f:
+                launches = json.loads(f.read().splitlines()[-1])
+    passed = counts['tests'] - counts['failures'] - counts['errors'] - counts['skipped']
+    print(f'  card tier: {passed} passed of {counts["tests"]} collected, {counts["failures"]} '
+          f'failed, {counts["errors"]} errors, {counts["skipped"]} skipped, exit '
+          f'{proc.returncode}, in {seconds:.1f} s; hand-written launches '
+          f'{json.dumps(launches)}', flush=True)
+    require(proc.returncode == 0, f'the card tier exited {proc.returncode}')
+    require(counts['failures'] == counts['errors'] == counts['skipped'] == 0,
+            f'the card tier did not pass whole: {counts}')
+    require(passed == counts['tests'] >= TIER_MIN_CASES,
+            f'the card tier passed {passed} of {counts["tests"]}, fewer than {TIER_MIN_CASES}')
+    require(all(launches.get(k, 0) > 0 for k in ('zernike_fwd', 'zernike_bwd_all',
+                                                  'noise_expose')),
+            f'the card tier did not launch every kernel it tests: {launches}')
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
@@ -3026,13 +3338,14 @@ def main():
     try:
         cpu_ref = workers.apply_async(coating_cpu_reference)
         design_ref = workers.apply_async(design_cpu_reference)
-        return run(start, stamp, cpu_ref, design_ref)
+        examples_ref = workers.apply_async(examples_cpu_reference)
+        return run(start, stamp, cpu_ref, design_ref, examples_ref)
     finally:
         workers.terminate()
         workers.join()
 
 
-def run(start, stamp, cpu_ref, design_ref):
+def run(start, stamp, cpu_ref, design_ref, examples_ref):
     from prysm_tpu_torch.ops import _cuda, noise
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import (WFC_NMS, build_cfg3_step, build_cfg4_chain,
@@ -3153,6 +3466,16 @@ def run(start, stamp, cpu_ref, design_ref):
               f'overlapped gradient, raytrace fit and trace) {stamp()}', flush=True)
         patterns = phase_parallel(dev)
         torch.cuda.synchronize()
+        print(f'phase 3q: the five examples at their default sizes, f32 and f64 (LOWFS '
+              f'256^2 -> 64^2, dark hole 128^2 -> 64^2, retrieval 256^2 -> 96^2, the doublet, '
+              f'the V-coat) {stamp()}', flush=True)
+        reset_launches()
+        phase_examples(dev, examples_ref)
+        no_kernel_launches('examples')
+        torch.cuda.synchronize()
+        print(f'phase 3r: the card tier (tests/test_torch_chip_*.py under pytest on the card) '
+              f'{stamp()}', flush=True)
+        phase_card_tier()
 
         print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
         kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
@@ -3161,6 +3484,7 @@ def run(start, stamp, cpu_ref, design_ref):
         lens_timing(smi, *lens)
         design_timing_lines(smi, *design)
         parallel_timing(smi, patterns)
+        examples_timing(smi, dev)
         torch.cuda.synchronize()
     print(f'phase 5: results {stamp()}', flush=True)
 

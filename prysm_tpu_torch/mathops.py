@@ -4,12 +4,15 @@ The JAX package's user-facing backend shim (``BackendShim`` and the
 ``set_backend_to_*`` functions) is not ported: the port has one backend,
 PyTorch.
 """
+from numbers import Number
+
+import numpy as np
 import torch
 
-from .conf import to_tensor
+from .conf import device_as, to_tensor
 
 __all__ = ['cis', 'cexp', 'jinc', 'row_dot', 'is_odd', 'is_power_of_2', 'sign',
-           'kronecker', 'gamma']
+           'kronecker', 'gamma', 'host_planner', 'array_to_true_numpy']
 
 
 def cis(theta):
@@ -113,3 +116,41 @@ def gamma(n, m):
         den = (m + nm1 - 2) * (2 * nm1 + 1)
         return (num / den) * gamma(nm1, m)
 
+
+
+def host_planner():
+    """Context manager running planner math on the CPU: ``config.device`` is the
+    CPU inside it and is restored on exit.
+
+    Library planners (composite apertures, DM setup, executor plans) then
+    build host tensors, which a caller can move to the card once::
+
+        with host_planner():
+            ifn = build_influence_functions(...)
+        ifn = ifn.to('cuda')
+    """
+    return device_as('cpu')
+
+
+def array_to_true_numpy(*args):
+    """Convert arrays from any backend to bona fide host numpy arrays.
+
+    Tensors on any device are copied to the host (``Tensor.numpy(force=True)``);
+    Python and numpy scalars and numpy arrays pass through.  Returns a single
+    array for a single input, else a list; None for no input.
+    """
+    if len(args) == 0:
+        return None
+    out = []
+    for arg in args:
+        if isinstance(arg, (Number, np.generic, np.ndarray)):
+            out.append(arg)
+        elif torch.is_tensor(arg):
+            out.append(arg.numpy(force=True))
+        elif hasattr(arg, 'get'):  # cupy
+            out.append(arg.get())
+        else:  # other array-protocol libraries
+            out.append(np.array(arg))
+    if len(out) == 1:
+        return out[0]
+    return out

@@ -80,6 +80,54 @@ def test_mathops_match_jax():
         assert mathops.kronecker(v, 2) == jmathops.kronecker(v, 2)
 
 
+_HOST_ARGS = {
+    'float': (2.5,),
+    'int and numpy scalar': (3, np.float32(1.5)),
+    'numpy arrays': (np.arange(6.0).reshape(2, 3), np.linspace(0, 1, 5) + 1j),
+    'array and scalar': (np.eye(3, dtype=np.float32), 7.0),
+}
+
+
+@pytest.mark.parametrize('args', list(_HOST_ARGS.values()), ids=list(_HOST_ARGS))
+def test_array_to_true_numpy_matches_jax(args):
+    """numpy and scalars pass through as in the JAX package: one input gives one
+    value, several a list; no input gives None."""
+    got, want = mathops.array_to_true_numpy(*args), jmathops.array_to_true_numpy(*args)
+    if len(args) == 1:
+        got, want = [got], [want]
+    assert isinstance(got, list) and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert type(g) is type(w)
+        np.testing.assert_array_equal(g, w)
+    assert mathops.array_to_true_numpy() is jmathops.array_to_true_numpy() is None
+
+
+def test_array_to_true_numpy_takes_tensors_to_host():
+    """A tensor, also one that needs a gradient or holds a lazy conjugate, comes back
+    as a host numpy array equal to the JAX package's conversion of the same values."""
+    a = np.linspace(-1, 1, 12).reshape(3, 4) + 0.5j
+    t = torch.from_numpy(a).conj()
+    w = torch.ones(4, dtype=torch.float64, requires_grad=True)
+    got_t, got_w = mathops.array_to_true_numpy(t, w)
+    assert isinstance(got_t, np.ndarray) and isinstance(got_w, np.ndarray)
+    np.testing.assert_array_equal(got_t, jmathops.array_to_true_numpy(jnp.asarray(a.conj())))
+    np.testing.assert_array_equal(got_w, np.ones(4))
+
+
+def test_host_planner_points_config_at_the_cpu(monkeypatch):
+    """Inside ``host_planner`` constructors build on the CPU; on exit, and after an
+    exception, ``config.device`` is what it was."""
+    monkeypatch.setattr(config, '_device', 'cuda')
+    with mathops.host_planner():
+        assert config.device == 'cpu'
+        x, _ = make_xy_grid(4)
+        assert x.device.type == 'cpu'
+    assert config.device == 'cuda'
+    with pytest.raises(ValueError), mathops.host_planner():
+        raise ValueError
+    assert config.device == 'cuda'
+
+
 @pytest.mark.parametrize('alpha,beta', [(0, 0), (0, 3), (1, -1), (2, 1)])
 def test_jacobi_matches_jax(alpha, beta):
     for n in range(6):

@@ -1,0 +1,219 @@
+"""The port's five examples against the JAX package's, on the CPU in float64.
+
+``prysm_tpu_torch.examples.<name>`` against ``examples/<name>.py``, the JAX
+example loaded as ``tests/test_examples.py`` loads it (``runpy``), at that
+test's sizes.  What each example computes inside ``main`` is observed by
+wrapping the module attribute it calls (the optimizer, the reconstructor,
+the merit), in both packages alike.  Bars:
+
+* LOWFS at 128^2 -> 48^2: R and I0 to 1e-10 relative; both worst errors
+  under the 0.5 nm mark;
+* the dark hole at 96^2 -> 48^2: the dark energy at zero and its gradient to
+  1e-10, the first 5 ``PrysmLBFGSB`` iterates to 1e-8; both suppressions
+  over 50;
+* the retrieval at 128^2 -> 64^2: the first 3 iterates to 1e-9; both errors
+  under 1e-6 nm;
+* the lens: the start merit and the EFL to 1e-10, the first 3 DLS iterates
+  to 1e-9 (both solves stop there: the JAX package's eager solve takes ~3 s
+  an iteration), the curvature tolerances to 1e-8;
+* the coating: the start reflectance to 1e-12, the first 5 L-BFGS-B iterates
+  of both refinements (cut there) to 1e-9, and the port's full refinement
+  under the 0.006 mark (``tests/test_examples.py`` holds the JAX package's).
+
+The lens example's decentre and tilt tolerances come from the boresight
+head at the on-axis field, where the centroid is zero but for rounding: its
+gradient is the centroid's derivative projected on the direction of that
+rounding, so the two packages' values differ (ROADMAP watch-list).  Both are
+held to what the projection allows: at least the budget over the centroid
+derivative's length.
+"""
+import runpy
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import prysm_tpu.x.coatings as jcoat
+import prysm_tpu.x.optym as jopt
+import prysm_tpu.x.raytracing as jrt
+from prysm_tpu.x.raytracing.design import _TraceCache as JTraceCache
+
+from prysm_tpu_torch.conf import config
+from prysm_tpu_torch.examples import (coating_design, coronagraph_dark_hole, lens_design,
+                                      lowfs_realtime, phase_retrieval)
+from prysm_tpu_torch.x import coatings as tcoat
+from prysm_tpu_torch.x import optym as topt
+from prysm_tpu_torch.x import raytracing as trt
+from prysm_tpu_torch.x.raytracing.design import _TraceCache
+
+torch.set_num_threads(2)
+
+EXAMPLES = 'examples'
+PORTED = {'lowfs_realtime': lowfs_realtime, 'coronagraph_dark_hole': coronagraph_dark_hole,
+          'phase_retrieval': phase_retrieval, 'lens_design': lens_design,
+          'coating_design': coating_design}
+
+
+@pytest.fixture(autouse=True)
+def f64_cpu(monkeypatch):
+    monkeypatch.setattr(config, '_device', 'cpu')
+    monkeypatch.setattr(config, '_precision', torch.float64)
+
+
+def _jax_example(name):
+    return runpy.run_path(f'{EXAMPLES}/{name}.py')
+
+
+def _record(monkeypatch, owner, name, **overrides):
+    """Wrap ``owner.name`` for the test (a dict ``owner`` for a module's globals): a list
+    of each call's (args, result); ``overrides`` replace keyword arguments."""
+    original, log = owner[name] if isinstance(owner, dict) else getattr(owner, name), []
+
+    def wrapped(*args, **kwargs):
+        out = original(*args, **{**kwargs, **overrides})
+        log.append((args, out))
+        return out
+
+    if isinstance(owner, dict):
+        monkeypatch.setitem(owner, name, wrapped)
+    else:
+        monkeypatch.setattr(owner, name, wrapped)
+    return log
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _rel(a, b):
+    a, b = np.asarray(_host(a), np.float64), np.asarray(_host(b), np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _iterates(result, n):
+    return [_host(r.x_next) for r in result.records[:n]]
+
+
+def test_lowfs_matches_jax(monkeypatch):
+    jax_mod = _jax_example('lowfs_realtime')
+    jax_R = _record(monkeypatch, jax_mod['main'].__globals__, 'reconstructor')
+    port_R = _record(monkeypatch, lowfs_realtime, 'reconstructor')
+    jax_err = jax_mod['main'](N=128, fN=48)
+    err = lowfs_realtime.main(N=128, fN=48)
+    (_, (jR, jI0)), = jax_R
+    (_, (R, I0)), = port_R
+    assert R.shape == (len(lowfs_realtime.NMS), 48 * 48)
+    assert _rel(R, jR) < 1e-10 and _rel(I0, jI0) < 1e-10
+    assert err < 0.5 and jax_err < 0.5
+    assert err == pytest.approx(jax_err, rel=1e-9)
+
+
+def test_dark_hole_matches_jax(monkeypatch):
+    made = {pkg: _record(monkeypatch, opt, 'PrysmLBFGSB') for pkg, opt in
+            (('jax', jopt), ('port', topt))}
+    runs = {pkg: _record(monkeypatch, opt, 'run_until') for pkg, opt in
+            (('jax', jopt), ('port', topt))}
+    suppression = {'jax': _jax_example('coronagraph_dark_hole')['main'](N=96, fN=48),
+                   'port': coronagraph_dark_hole.main(N=96, fN=48)}
+    (e0, g0), (je0, jg0) = ((made[pkg][0][0][0](made[pkg][0][0][1])) for pkg in ('port', 'jax'))
+    assert _rel(e0, je0) < 1e-10 and _rel(g0, jg0) < 1e-10
+    got, want = (_iterates(runs[pkg][0][1], 5) for pkg in ('port', 'jax'))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-8
+    assert suppression['port'] > 50.0 and suppression['jax'] > 50.0
+
+
+def test_retrieval_matches_jax(monkeypatch):
+    runs = {pkg: _record(monkeypatch, opt, 'run_until') for pkg, opt in
+            (('jax', jopt), ('port', topt))}
+    err = {'jax': _jax_example('phase_retrieval')['main'](N=128, fN=64),
+           'port': phase_retrieval.main(N=128, fN=64)}
+    got, want = (_iterates(runs[pkg][0][1], 3) for pkg in ('port', 'jax'))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-9
+    assert err['port'] < 1e-6 and err['jax'] < 1e-6
+
+
+def _centroid_derivative(system):
+    """|d centroid / d p| at the image for each of the example's five seeds (port)."""
+    adj = trt.adjoint
+    P, S = trt.launch(system, system.field(), lens_design.WVL, trt.Sampling.hex(5))
+    seeds = [adj.seed_curvature(1), adj.seed_curvature(2), adj.seed_curvature(3),
+             adj.seed_decenter(2, 'y'), adj.seed_tilt(2, 'x')]
+    heads = [lambda P_hist, S_hist, OPL_hist, k=k: P_hist[-1][:, k].mean() for k in (0, 1)]
+    J = np.asarray(adj.multi_objective_sensitivity(system, _host(P), _host(S),
+                                                   lens_design.WVL, seeds, heads).jacobian)
+    return np.hypot(J[0], J[1])
+
+
+def test_lens_design_matches_jax(monkeypatch):
+    merits = {pkg: _record(monkeypatch, rt.Problem, 'merit') for pkg, rt in
+              (('jax', jrt), ('port', trt))}
+    solves = {pkg: _record(monkeypatch, rt.Problem, 'solve', maxiter=3) for pkg, rt in
+              (('jax', jrt), ('port', trt))}
+    tols = {pkg: _record(monkeypatch, rt.adjoint, 'inverse_sensitivity') for pkg, rt in
+            (('jax', jrt), ('port', trt))}
+    jax_system = _jax_example('lens_design')['main'](plot=False)
+    system = lens_design.main(plot=False)
+    assert _rel(merits['port'][0][1], merits['jax'][0][1]) < 1e-10
+    efl = float(trt.EFL()(system, _TraceCache(system)))
+    jax_efl = float(jrt.EFL()(jax_system, JTraceCache(jax_system)))
+    assert efl == pytest.approx(jax_efl, rel=1e-10)
+    got, want = ([h['x'] for h in solves[pkg][0][1].history[:3]] for pkg in ('port', 'jax'))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-9
+    tol, jax_tol = (np.asarray(tols[pkg][0][1]) for pkg in ('port', 'jax'))
+    assert _rel(tol[:3], jax_tol[:3]) < 1e-8
+    floor = 5e-3 / _centroid_derivative(system)[3:]
+    assert (tol[3:] >= floor * (1 - 1e-6)).all() and (jax_tol[3:] >= floor * (1 - 1e-6)).all()
+
+
+def test_coating_design_matches_jax(monkeypatch):
+    rtas = {pkg: _record(monkeypatch, coat, 'RTA') for pkg, coat in
+            (('jax', jcoat), ('port', tcoat))}
+    refines = {pkg: _record(monkeypatch, coat, 'refine', maxiter=5) for pkg, coat in
+               (('jax', jcoat), ('port', tcoat))}
+    _jax_example('coating_design')['main'](plot=False)
+    coating_design.main(plot=False)
+    R0, jR0 = (np.asarray(_host(rtas[pkg][0][1][0])).mean() for pkg in ('port', 'jax'))
+    assert R0 == pytest.approx(jR0, rel=1e-12)
+    got, want = (_iterates(refines[pkg][0][1].optimizer_result, 5) for pkg in ('port', 'jax'))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-9
+    monkeypatch.undo()
+    monkeypatch.setattr(config, '_device', 'cpu')
+    monkeypatch.setattr(config, '_precision', torch.float64)
+    assert coating_design.main(plot=False) < 0.006
+
+
+def test_dark_hole_plot_draws_the_focal_intensity(monkeypatch):
+    """plot=True draws log10 of the focal intensity at the solution (under Agg)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    from matplotlib import pyplot as plt
+    shown = _record(monkeypatch, plt, 'show')
+    runs = _record(monkeypatch, topt, 'run_until')
+    coronagraph_dark_hole.main(N=32, fN=16, plot=True)
+    assert len(shown) == 1
+    image = plt.gca().get_images()[0].get_array()
+    _, _, focal_intensity, _ = coronagraph_dark_hole.dark_hole(N=32, fN=16)
+    with torch.no_grad():
+        want = np.log10(np.maximum(_host(focal_intensity(runs[0][1].x)), 1e-12))
+    np.testing.assert_allclose(np.asarray(image), want, rtol=0, atol=1e-12)
+    plt.close('all')
+
+
+@pytest.mark.parametrize('name', sorted(PORTED))
+def test_example_asked_for_the_card_raises_without_one(monkeypatch, name):
+    """device='cuda', and the default (config.device, the card), raise without a card."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PORTED[name].main(device='cuda')
+    monkeypatch.setattr(config, '_device', 'cuda')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PORTED[name].main()

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
+# the card tier runs where JAX is not installed: its files stand with the port's
+TIER_FILES = sorted((ROOT / 'tests').glob('test_torch_chip_*.py'))
 PORT_FILES = sorted((ROOT / 'prysm_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
 
 
@@ -25,7 +27,7 @@ def _imported_modules(path):
             yield node.module
 
 
-@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize('path', PORT_FILES + TIER_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_prysm_tpu_imports(path):
     for mod in _imported_modules(path):
         top = mod.split('.')[0]
@@ -34,6 +36,29 @@ def test_no_jax_or_prysm_tpu_imports(path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 15
+    assert len(TIER_FILES) == 7
+
+
+def test_examples_match_the_jax_package():
+    """prysm_tpu_torch/examples/ holds the JAX package's examples by name, and its
+    package init."""
+    want = {p.name for p in (ROOT / 'examples').glob('*.py')}
+    got = {p.name for p in (ROOT / 'prysm_tpu_torch' / 'examples').glob('*.py')}
+    assert len(want) == 5 and got == want | {'__init__.py'}
+
+
+def _test_functions(path):
+    return {node.name for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.FunctionDef) and node.name.startswith('test_')}
+
+
+@pytest.mark.parametrize('path', TIER_FILES, ids=lambda p: p.name)
+def test_card_tier_answers_to_the_tpu_tier(path):
+    """Each card-tier file has a counterpart of every test function of its
+    tests_tpu/ file, by name, and no test of its own; the seven hold all 43."""
+    tpu = ROOT / 'tests_tpu' / path.name.replace('test_torch_chip_', 'test_tpu_')
+    assert _test_functions(path) == _test_functions(tpu)
+    assert sum(len(_test_functions(p)) for p in TIER_FILES) == 43
 
 
 def test_slice9_modules_match_the_jax_package():
@@ -112,6 +137,12 @@ SLICE13_MODULES = ('parallel', 'parallel._collectives', 'parallel.mesh', 'parall
                    'parallel.raytrace', 'parallel.overlap', 'x.raytracing.plotting')
 
 
+# the JAX package's examples, the port's user entry points
+SLICE14_MODULES = ('examples',) + tuple(f'examples.{m}' for m in (
+    'lowfs_realtime', 'coronagraph_dark_hole', 'phase_retrieval', 'lens_design',
+    'coating_design'))
+
+
 def _module_path(module):
     path = ROOT / 'prysm_tpu_torch' / (module.replace('.', '/') + '.py')
     return path if path.exists() else path.with_suffix('') / '__init__.py'
@@ -119,7 +150,8 @@ def _module_path(module):
 
 @pytest.mark.parametrize('module', SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES
                          + SLICE8_MODULES + SLICE9_MODULES + SLICE10_MODULES
-                         + SLICE11_MODULES + SLICE12_MODULES + SLICE13_MODULES)
+                         + SLICE11_MODULES + SLICE12_MODULES + SLICE13_MODULES
+                         + SLICE14_MODULES)
 def test_slice_module_is_checked_and_imports(module):
     import importlib
     path = _module_path(module)
