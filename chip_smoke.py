@@ -214,6 +214,16 @@ Phases, each of which raises on a failed check:
       collected case passed, none failed, errored or skipped, and launch the
       Zernike forward, full backward and noise kernels it holds to their
       twins;
+   s. the port's documentation (``docs/torch/`` through ``prysm_tpu_torch.docs``): every
+      executed doc, block by block in a temporary working directory, at its own sizes, on
+      the card in f32 and in f64; f64 against the same docs run in f64 on the CPU (a
+      spawn worker process, whose random draws the card's runs replay) at 1e-9 (the
+      kernel lesson's fused synthesis at the Zernike tier: the kernel computes in f32);
+      f32 against f64 at the f32 tier of each result's kind, or twice the JAX package's
+      own f32 error where that is larger (``probes/docs_cpu_probe.py``); frames by their
+      mean and spread; the Zernike forward and noise kernels launched by the kernel
+      lesson and the noise kernel by the image-simulation tutorial, in both precisions;
+      each doc's wall seconds and the phase's;
    the paths of c-e, g-j, m, p and q run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
@@ -496,6 +506,70 @@ EXAMPLE_BARS = {k: max(2 * v, EXAMPLE_FLOORS.get(k, 0.0)) for k, v in EXAMPLE_JA
 # phase 3r: the card tier, tests/test_torch_chip_*.py (the 7 files of tests_tpu/, 43
 # functions, 55 cases), run by pytest on the card within this many seconds
 TIER_FILES, TIER_MIN_CASES, TIER_TIMEOUT_S = 7, 55, 600
+# phase 3s: the port's executed docs (prysm_tpu_torch.docs: docs/torch/, block by block) on
+# the card in f32 and in f64.  f64 on the card against the same docs on the CPU (the spawn
+# worker's f64 run, whose random draws the card's runs replay), each result at
+# EXAMPLE_CARD_CPU_BAR but where DOC_CARD_CPU_BARS says otherwise and why
+DOC_CARD_CPU_BARS = {
+    ('college/102-precision-and-dispatch.md', 'W'):
+        (1e-6, "the Zernike kernel computes in f32 on the card, the CPU's plain version in "
+               'f64: the synthesis tier (tests/test_f32_tier.py:102-114)'),
+}
+# f32 against f64 on the card, max |f32 - f64| / max |f64|: the tier of each result's kind
+# (docs.RESULTS), tests/test_f32_tier.py's where it has one: the PSF 2e-5 of peak (:47-62),
+# the MTF 1e-5 (:59), the MDFT gradient 1e-3 (:65-99), the Zernike synthesis 1e-6
+# (:102-114), the Babinet frame 1e-4 (:140-171), the traced OPL 1e-5 (:236), the
+# interferogram statistics 1e-5 (:254); optimizer results ('design') the gradient tier
+# 1e-3, least-squares fits and fiber modes the Zernike tier's ten times, 1e-5.  Where the
+# JAX package's own f32 error of the result on the CPU is larger, twice that
+# (DOCS_JAX_F32).  Frames ('noise') are draws: held by their mean (2e-3) and spread (5%)
+DOC_TIERS = {'psf': 2e-5, 'mtf': 1e-5, 'grad': 1e-3, 'zernike': 1e-6, 'babinet': 1e-4,
+             'ray': 1e-5, 'stats': 1e-5, 'design': 1e-3, 'fit': 1e-5, 'fiber': 1e-5}
+# the JAX package's own f32 error of each doc result on the CPU, against its x64 run with
+# the same draws, where twice it exceeds the tier ('doc::result'; probes/docs_cpu_probe.py:
+# the mask edges' antialiasing ramps, the FWHM's threshold crossing, the ray OPD's sums of
+# 100 mm paths, the optimizers' trajectories; the rest lie under half their tiers)
+DOCS_JAX_F32 = {
+    'college/101-how-prysm-tpu-works.md::amp': 1.22e-05,
+    'college/104-richdata-and-io.md::v': 6.7e-07,
+    'college/201-zernikes-on-a-circle.md::z22': 6.49e-07,
+    'college/202-other-bases-and-derivatives.md::P': 7.54e-07,
+    'college/202-other-bases-and-derivatives.md::T': 1.89e-06,
+    'college/202-other-bases-and-derivatives.md::q2d': 6.6e-07,
+    'college/202-other-bases-and-derivatives.md::q3': 5.26e-07,
+    'college/202-other-bases-and-derivatives.md::qc': 2.94e-06,
+    'college/204-forbes-q-and-clenshaw.md::dzdr': 5.74e-07,
+    'college/204-forbes-q-and-clenshaw.md::dzdt': 7.46e-07,
+    'college/204-forbes-q-and-clenshaw.md::z': 6.65e-07,
+    'explanation/deformable-mirrors.md::sfe': 2.08e-05,
+    'explanation/ins-and-outs-of-polynomials.md::T': 9.66e-07,
+    'explanation/segmented-systems.md::opd': 8.9e-06,
+    'how-tos/optimization.md::fk': 0.207,
+    'how-tos/polychromatic.md::amp': 1.52e-05,
+    'how-tos/telescope-apertures.md::hst': 3.82e-05,
+    'how-tos/telescope-apertures.md::luvoir': 2.24e-05,
+    'how-tos/telescope-apertures.md::opd': 4.33e-06,
+    'tutorials/01-first-psf.md::amp': 2.82e-05,
+    'tutorials/01-first-psf.md::w': 0.00563,
+    'tutorials/03-raytracing.md::opd': 0.000109,
+    'tutorials/03-raytracing.md::res.x': 0.00161,
+    'tutorials/03-raytracing.md::sens.jacobian': 0.0098,
+}
+DOC_NOISE_MEAN, DOC_NOISE_SPREAD = 2e-3, 0.05
+# each doc of the phase in which a hand-written kernel must launch, on the card in both
+# precisions: the kernel lesson's synthesis and frame, the image-simulation tutorial's
+# exposures (expose_fused, and 'auto' on its photon-rich f32 scene)
+DOC_KERNELS = {'college/102-precision-and-dispatch.md': ('zernike_fwd', 'noise_expose'),
+               'tutorials/05-image-simulation.md': ('noise_expose',)}
+
+
+def doc_f32_bar(doc, name):
+    """Phase 3s's f32 bar of one doc result: its kind's tier, or twice the JAX package's
+    f32 error where that is larger."""
+    from prysm_tpu_torch.docs import RESULTS
+    return max(DOC_TIERS[RESULTS[doc][name]], 2 * DOCS_JAX_F32.get(f'{doc}::{name}', 0.0))
+
+
 # cfg5's detector (bench.py cfg5)
 DET5 = dict(dark_current=2.0, read_noise=5.0, bias=100.0, fwc=60e3, conversion_gain=0.5,
             bits=14, exposure_time=1e-2)
@@ -2923,6 +2997,124 @@ def phase_card_tier():
 
 
 # ---------------------------------------------------------------------------
+# phase 3s: the port's docs on the card
+# ---------------------------------------------------------------------------
+
+def docs_run(dev, dtype, draws=None):
+    """Every executed port doc (``prysm_tpu_torch.docs.EXECUTED``) on ``dev`` in ``dtype``,
+    each in a fresh temporary working directory: its results (``docs.RESULTS``) on the host,
+    its wall seconds, its hand-written launches, the drawing blocks skipped (no matplotlib),
+    the error that stopped it, if any, and the random draws of the docs ``docs.REPLAYED``
+    names, replayed from ``draws`` where given, else recorded."""
+    import tempfile
+    import traceback
+    from prysm_tpu_torch import docs
+    from prysm_tpu_torch.conf import device_as, precision_as
+    run = {k: {} for k in ('values', 'walls', 'launches', 'skipped', 'errors', 'draws')}
+    cuda = torch.device(dev).type == 'cuda'
+    for doc in sorted(docs.EXECUTED):
+        record = docs.Draws(draws.get(doc) if draws else None) \
+            if doc in docs.REPLAYED else None
+        reset_launches()
+        with tempfile.TemporaryDirectory() as tmp, docs.in_directory(tmp), \
+                precision_as(dtype), device_as(dev):
+            t0 = time.perf_counter()
+            try:
+                ns = docs.run(doc, draws=record)
+                if cuda:
+                    torch.cuda.synchronize()
+                run['values'][doc] = {name: docs.value(ns, name) for name in docs.RESULTS[doc]}
+                run['skipped'][doc] = ns['__skipped__']
+            except Exception as e:  # every doc runs; phase 3s fails after on any error
+                run['errors'][doc] = f'{type(e).__name__}: {e}'[:1500]
+                traceback.print_exc()
+            run['walls'][doc] = time.perf_counter() - t0
+        run['launches'][doc] = launch_counts()
+        if record is not None and not record.replaying:
+            run['draws'][doc] = record.recorded
+    return run
+
+
+def docs_cpu_reference():
+    """The executed port docs in f64 on the host's CPU, run in a worker process (their
+    prints kept out of the script's output): what phase 3s holds the card's f64 runs to,
+    and the draws its runs replay."""
+    import contextlib
+    import io
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    with contextlib.redirect_stdout(io.StringIO()):
+        return docs_run('cpu', torch.float64)
+
+
+def phase_docs(dev, cpu_ref):
+    """Every executed port doc on the card in f32 and in f64 (``docs_run``): f64 against the
+    CPU's f64 run at EXAMPLE_CARD_CPU_BAR (or DOC_CARD_CPU_BARS), f32 against f64 at
+    ``doc_f32_bar``, frames by their moments; the kernels of DOC_KERNELS launched in both
+    precisions.  Prints one line a doc (its walls and worst errors) and the phase's total;
+    fails after every doc has run, naming every check missed.  Returns the launches of the
+    two card runs, summed by kernel."""
+    from prysm_tpu_torch import docs
+    t0 = time.perf_counter()
+    cpu = cpu_ref.get(timeout=900)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        runs[dtype] = docs_run(dev, dtype, cpu['draws'])
+    r32, r64 = runs[torch.float32], runs[torch.float64]
+    failures = [f'{doc} on the {where}: {err}' for where, run in
+                (('card, f32', r32), ('card, f64', r64), ('CPU', cpu))
+                for doc, err in run['errors'].items()]
+    for doc in sorted(docs.EXECUTED):
+        short = doc.rsplit('/', 1)[-1][:-3]
+        if any(doc in run['errors'] for run in (r32, r64, cpu)):
+            print(f'  {short}: failed', flush=True)
+            continue
+        worst = dict.fromkeys(('f64 card vs CPU', 'f32 vs f64'), (0.0, ''))
+        for name, tier in docs.RESULTS[doc].items():
+            a32, a64, c64 = (run['values'][doc][name] for run in (r32, r64, cpu))
+            if tier == 'noise':
+                for tag, (x, y) in (('f64 card vs CPU', (a64, c64)), ('f32 vs f64', (a32, a64))):
+                    dm, ds = docs.frame_moments(x, y)
+                    if not (dm <= DOC_NOISE_MEAN and ds <= DOC_NOISE_SPREAD):
+                        failures.append(f'{doc} {name} {tag}: means {dm:.3g} apart (bar '
+                                        f'{DOC_NOISE_MEAN:g}), spreads {ds:.3g} (bar '
+                                        f'{DOC_NOISE_SPREAD:g})')
+                continue
+            bar64 = DOC_CARD_CPU_BARS.get((doc, name), (EXAMPLE_CARD_CPU_BAR,))[0]
+            for tag, (x, y), bar in (('f64 card vs CPU', (a64, c64), bar64),
+                                     ('f32 vs f64', (a32, a64), doc_f32_bar(doc, name))):
+                try:
+                    err = docs.relative_error(x, y)
+                except ValueError as e:
+                    failures.append(f'{doc} {name} {tag}: {e}')
+                    continue
+                if not err <= bar:
+                    failures.append(f'{doc} {name} {tag}: {err:.3e} exceeds {bar:g}')
+                worst[tag] = max(worst[tag], (err / bar, f'{name} {err:.2e}'))
+        launched = {k: n for k in r32['launches'][doc]
+                    if (n := r32['launches'][doc][k] + r64['launches'][doc][k])}
+        for kernel in DOC_KERNELS.get(doc, ()):
+            for tag, run in (('f32', r32), ('f64', r64)):
+                if run['launches'][doc][kernel] < 1:
+                    failures.append(f'{doc}: {kernel} was not launched on the card in {tag}')
+        skipped = r32['skipped'][doc] or r64['skipped'][doc]
+        print(f'  {short}: card f32 {r32["walls"][doc]:.2f} s, f64 {r64["walls"][doc]:.2f} s '
+              f'(CPU f64 {cpu["walls"][doc]:.2f} s); worst (of its bar) '
+              + ', '.join(f'{tag} {text}' for tag, (_, text) in worst.items())
+              + (f'; launches {launched}' if launched else '')
+              + (f'; drawing blocks {skipped} skipped (no matplotlib)' if skipped else ''),
+              flush=True)
+    for failure in failures:
+        print(f'  FAILED {failure}', flush=True)
+    print(f'  phase 3s: {len(docs.EXECUTED)} docs, card f32 {sum(r32["walls"].values()):.1f} s, '
+          f'f64 {sum(r64["walls"].values()):.1f} s (CPU f64 in the worker '
+          f'{sum(cpu["walls"].values()):.1f} s); the phase took {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    require(not failures, f'phase 3s: {len(failures)} checks failed')
+    return {k: sum(run['launches'][doc][k] for run in (r32, r64) for doc in docs.EXECUTED)
+            for k in launch_counts()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
@@ -3339,13 +3531,14 @@ def main():
         cpu_ref = workers.apply_async(coating_cpu_reference)
         design_ref = workers.apply_async(design_cpu_reference)
         examples_ref = workers.apply_async(examples_cpu_reference)
-        return run(start, stamp, cpu_ref, design_ref, examples_ref)
+        docs_ref = workers.apply_async(docs_cpu_reference)
+        return run(start, stamp, cpu_ref, design_ref, examples_ref, docs_ref)
     finally:
         workers.terminate()
         workers.join()
 
 
-def run(start, stamp, cpu_ref, design_ref, examples_ref):
+def run(start, stamp, cpu_ref, design_ref, examples_ref, docs_ref):
     from prysm_tpu_torch.ops import _cuda, noise
     from prysm_tpu_torch.ops import zernike as zk
     from prysm_tpu_torch.steps import (WFC_NMS, build_cfg3_step, build_cfg4_chain,
@@ -3476,6 +3669,11 @@ def run(start, stamp, cpu_ref, design_ref, examples_ref):
         print(f'phase 3r: the card tier (tests/test_torch_chip_*.py under pytest on the card) '
               f'{stamp()}', flush=True)
         phase_card_tier()
+        print(f'phase 3s: the port\'s executed docs on the card, f32 and f64 (docs/torch/, '
+              f'against the CPU\'s f64 run) {stamp()}', flush=True)
+        for name, count in phase_docs(dev, docs_ref).items():
+            launches[name] += count
+        torch.cuda.synchronize()
 
         print(f'phase 4: timing (medians; steps in turns) {stamp()}', flush=True)
         kernels = phase_timing(dev, smi, frame5, step3, chain4, fit, image, trace6, grad6,
