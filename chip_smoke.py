@@ -224,6 +224,19 @@ Phases, each of which raises on a failed check:
       mean and spread; the Zernike forward and noise kernels launched by the kernel
       lesson and the noise kernel by the image-simulation tutorial, in both precisions;
       each doc's wall seconds and the phase's;
+   t. ``torch.func`` through the port's custom autograd Functions, f32 and f64,
+      over the world-size-1 NCCL group of phase 3p: ``torch.func.grad`` of
+      cfg2's TF32 loss against autograd's (one forward and one coefficient
+      backward launch each), the ``jvp`` of its ``'high'`` plan against the
+      plan applied to the tangent, ``torch.func.grad`` of phase 3a's 1024^2
+      ``zernike_sum`` decentre loss (grads='all') against autograd's (one full
+      backward launch each), ``vmap`` of ``zernike_sum`` over 4 coefficient
+      vectors against 4 calls (4 forward launches each), the sharded
+      broadband loss's ``torch.func.grad`` against its serial autograd
+      gradient at phase 3p's bars; in f64 ``jacfwd`` of a 41-layer edge
+      filter's ``stack_rt`` over its thicknesses against central differences;
+      and ``python -m prysm_tpu_torch.tools.scaling_bench`` at world size 1
+      (256^2, 2 wavelengths, 128^2), whose row it prints;
    the paths of c-e, g-j, m, p and q run no hand-written kernel: their launch
    counts, set to 0 before each, must read 0 after it;
 4. timing with CUDA events: ms per step and per frame, in turns; device ms
@@ -3118,6 +3131,204 @@ def phase_docs(dev, cpu_ref):
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 3t: torch.func through the port's custom autograd Functions
+# ---------------------------------------------------------------------------
+
+# a transform against autograd or the plain call: the same operations, so
+# the suggested 1e-6 relative in f32 (and 1e-12 in f64)
+TRANSFORM_BAR, TRANSFORM_BAR64 = 1e-6, 1e-12
+# jacfwd of stack_rt against central differences at h = 1e-6: the truncation,
+# ~h^2 times the third derivative, is 5.9e-7 of the peak for the edge filter
+# below (1e-7 gives 5.9e-9: it goes as h^2; jacfwd meets jacrev at 6e-15),
+# the rounding ~eps / h 1e-10
+STACK_FD_STEP, STACK_FD_BAR = 1e-6, 1e-6
+STACK_LAYERS, STACK_WVLS = 41, 256
+VMAP_BATCH = 4
+SCALING_ARGS, SCALING_TIMEOUT_S = ('256', '2', '128'), 300
+
+
+def counted(fn):
+    """(fn() synchronised, the hand-written launches it made, those not 0)."""
+    reset_launches()
+    out = synced(fn)
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+def transform_bar(dtype):
+    return TRANSFORM_BAR64 if dtype == torch.float64 else TRANSFORM_BAR
+
+
+def edge_filter(dtype, dev):
+    """A 41-layer (HL)^20 H edge filter at 0.55 um with 5% seeded errors, and its
+    256 wavelengths over 0.45-0.65 um at 0 and 0.3 rad."""
+    import numpy as np
+    quarter = [0.55 / (4 * n) for n in (2.35, 1.38)]
+    errors = np.random.default_rng(SEED).normal(scale=0.05, size=STACK_LAYERS)
+    d = torch.tensor([quarter[k % 2] * (1 + e) for k, e in enumerate(errors)], dtype=dtype,
+                     device=dev)
+    wvl = torch.linspace(0.45, 0.65, STACK_WVLS, dtype=dtype, device=dev)[:, None]
+    theta = torch.tensor([0.0, 0.3], dtype=dtype, device=dev)[None, :]
+    return [2.35, 1.38] * (STACK_LAYERS // 2) + [2.35], d, wvl, theta
+
+
+def add_launches(launches, counts):
+    for k, v in counts.items():
+        launches[k] += v
+
+
+def transforms_cfg2(dev, dtype, checks, launches):
+    """torch.func.grad of cfg2's TF32 loss against autograd's, launch for launch, and the
+    jvp of its 'high' plan against the plan applied to the tangent."""
+    from prysm_tpu_torch.steps import _cfg2_intensity, make_cfg2_plan, make_pupil
+    tag = str(dtype)[6:]
+    pupil = make_pupil(N, dtype=dtype, device=dev)
+    plan = make_cfg2_plan(pupil, FN, matmul_precision='high')
+    intensity = _cfg2_intensity(pupil, plan, fused=True)
+    with torch.no_grad():
+        I_meas = intensity(pupil.coefs * 0.5)
+
+    def loss(c):
+        return torch.sum((intensity(c) - I_meas) ** 2)
+
+    c = pupil.coefs
+    got, n_func = counted(lambda: torch.func.grad(loss)(c))
+    leaf = c.clone().requires_grad_(True)
+    want, n_auto = counted(lambda: torch.autograd.grad(loss(leaf), leaf)[0])
+    for name, n in (('torch.func.grad', n_func), ('autograd', n_auto)):
+        require(n == {'zernike_fwd': 1, 'zernike_bwd_coefs': 1},
+                f'cfg2 {tag} {name} launched {n}, not one forward and one coefs backward')
+        add_launches(launches, n)
+    checks.append((f'cfg2 TF32 torch.func.grad vs autograd {tag}', rel(got, want),
+                   TRANSFORM_BAR))
+    field = torch.polar(pupil.amp, pupil.r * 3.0).to(plan.Ex.dtype)
+    tangent = torch.polar(pupil.amp, pupil.t).to(plan.Ex.dtype)
+    _, dout = synced(lambda: torch.func.jvp(plan, (field,), (tangent,)))
+    checks.append((f"'high' plan jvp vs the plan of the tangent {tag}",
+                   rel(dout, synced(lambda: plan(tangent))), transform_bar(dtype)))
+
+
+def transforms_zernike(dev, dtype, checks, launches):
+    """torch.func.grad of a 1024^2 zernike_sum loss (grads='all') against autograd's, with
+    one full-backward launch; vmap over VMAP_BATCH coefficient vectors against as many
+    calls, with as many forward launches."""
+    from prysm_tpu_torch.polynomials import zernike_sum
+    from prysm_tpu_torch.steps import NMS6, make_pupil
+    tag = str(dtype)[6:]
+    pupil = make_pupil(N, dtype=dtype, device=dev)
+    x, y, shift = shifted_grid(dtype, dev)
+
+    def loss(c, s):
+        return zernike_fit_loss(lambda c, x, y: zernike_sum(c, NMS6, x, y), x, y, s, c,
+                                pupil.amp)
+
+    c = pupil.coefs
+    got, n_func = counted(lambda: torch.func.grad(loss, argnums=(0, 1))(c, shift))
+    leaves = (c.clone().requires_grad_(True), shift.clone().requires_grad_(True))
+    want, n_auto = counted(lambda: torch.autograd.grad(loss(*leaves), leaves))
+    # the loss's target is one more forward call, under no_grad
+    for name, n in (('torch.func.grad', n_func), ('autograd', n_auto)):
+        require(n == {'zernike_fwd': 2, 'zernike_bwd_all': 1},
+                f'zernike_sum {tag} {name} launched {n}, not two forwards and one full '
+                'backward')
+        add_launches(launches, n)
+    for what, a, b in zip(('coefficient', 'decentre'), got, want):
+        checks.append((f'zernike_sum torch.func.grad vs autograd, {what} {tag}', rel(a, b),
+                       TRANSFORM_BAR))
+    gen = torch.Generator().manual_seed(SEED)
+    batch = (torch.randn(VMAP_BATCH, len(NMS6), generator=gen, dtype=dtype) * 10).to(dev)
+
+    def opd(cc):
+        return zernike_sum(cc, NMS6, x, y)
+
+    got, n_vmap = counted(lambda: torch.func.vmap(opd)(batch))
+    want, n_calls = counted(lambda: torch.stack([opd(cc) for cc in batch]))
+    for name, n in (('vmap', n_vmap), ('calls', n_calls)):
+        require(n == {'zernike_fwd': VMAP_BATCH},
+                f'{VMAP_BATCH} coefficient vectors by {name} launched {n}')
+        add_launches(launches, n)
+    checks.append((f'zernike_sum vmap x{VMAP_BATCH} vs {VMAP_BATCH} calls {tag}',
+                   rel(got, want), TRANSFORM_BAR))
+
+
+def transforms_stack(dev, checks):
+    """jacfwd of stack_rt (|r|^2, s) with respect to the 41 thicknesses, f64, against
+    central differences (the coatings modules work in ``config.precision``)."""
+    from prysm_tpu_torch.conf import precision_as
+    from prysm_tpu_torch.x import coatings
+    ns, d, wvl, theta = edge_filter(torch.float64, dev)
+
+    def R(d):
+        with precision_as(torch.float64):
+            r, _ = coatings.stack_rt(coatings.Stack(ns, d, 1.52), wvl, theta, 's')
+        return r.real ** 2 + r.imag ** 2
+
+    got = synced(lambda: torch.func.jacfwd(R)(d))
+    eye = torch.eye(STACK_LAYERS, dtype=d.dtype, device=dev)
+    fd = synced(lambda: torch.stack([(R(d + STACK_FD_STEP * e) - R(d - STACK_FD_STEP * e))
+                                     / (2 * STACK_FD_STEP) for e in eye], dim=-1))
+    checks.append((f'stack_rt jacfwd vs central differences f64 ({STACK_LAYERS} layers)',
+                   rel(got, fd), STACK_FD_BAR))
+
+
+def transforms_broadband(dev, dtype, checks):
+    """torch.func.grad of the sharded broadband loss over the NCCL group against autograd
+    of its serial counterpart, at phase 3p's bars."""
+    from prysm_tpu_torch.parallel import broadband_psf, make_mesh
+    from prysm_tpu_torch.parallel.sharding import _shard_broadband_loss
+    from prysm_tpu_torch.steps import _pattern_inputs
+    tag = str(dtype)[6:]
+    pupil, modes, _, wvls, weights, plan = _pattern_inputs(N, FN, dtype, dev)
+    c = pupil.coefs
+    I_meas = broadband_psf(c * 0.5, pupil.amp, modes, wvls, weights, plan)
+    loss = _shard_broadband_loss(make_mesh({'wl': 1, 'ty': 1}), plan, pupil.amp, modes,
+                                 wvls, weights, I_meas)
+    leaf = c.clone().requires_grad_(True)
+    serial = torch.sum((broadband_psf(leaf, pupil.amp, modes, wvls, weights, plan)
+                        - I_meas) ** 2)
+    want = synced(lambda: torch.autograd.grad(serial, leaf)[0])
+    got = synced(lambda: torch.func.grad(loss)(c))
+    checks.append((f'broadband torch.func.grad (NCCL, world 1) vs serial {tag}',
+                   rel(got, want), PATTERN_BAR64 if dtype == torch.float64 else PATTERN_BAR))
+
+
+def scaling_row():
+    """The scaling harness at world size 1, in a process of its own: its row."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, '-m', 'prysm_tpu_torch.tools.scaling_bench',
+                           *SCALING_ARGS, '--ranks', '1'], cwd=root, capture_output=True,
+                          text=True, timeout=SCALING_TIMEOUT_S)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], sep='\n', flush=True)
+    require(proc.returncode == 0, f'the scaling harness exited {proc.returncode}')
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{')]
+    row = lines[0]
+    print(f'  scaling harness at world size 1 (N, W a card, fN = {", ".join(SCALING_ARGS)}):'
+          f' {json.dumps(row)}; {lines[-1].get("card")}', flush=True)
+    require(set(row) == {'devices', 'wavelengths', 'step_ms', 'wl_per_s',
+                         'weak_scaling_efficiency'} and row['devices'] == 1
+            and row['weak_scaling_efficiency'] == 1.0 and row['step_ms'] > 0,
+            f'the scaling harness row is not a world-size-1 row: {row}')
+
+
+def phase_transforms(dev):
+    """torch.func through the port's six custom Functions on the card (phase 3t of the
+    module's docstring); returns the hand-written launches, by kernel."""
+    import torch.distributed as dist
+    require(dist.get_backend() == 'nccl' and dist.get_world_size() == 1,
+            'phase 3t runs on a world-size-1 NCCL group')
+    checks, launches = [], dict.fromkeys(launch_counts(), 0)
+    for dtype in (torch.float32, torch.float64):
+        transforms_cfg2(dev, dtype, checks, launches)
+        transforms_zernike(dev, dtype, checks, launches)
+        transforms_broadband(dev, dtype, checks)
+    transforms_stack(dev, checks)
+    run_checks(checks, width=64)
+    print(f'  hand-written launches in phase 3t: {json.dumps(launches)}', flush=True)
+    scaling_row()
+    return launches
+
+
 @contextmanager
 def nccl_group():
     """A world-size-1 NCCL process group over a file rendezvous, destroyed on exit."""
@@ -3672,6 +3883,12 @@ def run(start, stamp, cpu_ref, design_ref, examples_ref, docs_ref):
         print(f'phase 3s: the port\'s executed docs on the card, f32 and f64 (docs/torch/, '
               f'against the CPU\'s f64 run) {stamp()}', flush=True)
         for name, count in phase_docs(dev, docs_ref).items():
+            launches[name] += count
+        torch.cuda.synchronize()
+        print(f'phase 3t: torch.func through the custom Functions, f32 and f64 (cfg2\'s TF32 '
+              f'step and plan, zernike_sum at {N}^2, stack_rt, the broadband loss over NCCL; '
+              f'the scaling harness at world size 1) {stamp()}', flush=True)
+        for name, count in phase_transforms(dev).items():
             launches[name] += count
         torch.cuda.synchronize()
 

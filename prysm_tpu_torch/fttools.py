@@ -151,20 +151,31 @@ class _HighPrecisionApply(torch.autograd.Function):
 
     The backward is the other direction of the same plan, under the same
     scope, so ``'high'`` covers the gradient's matmuls as it covers the
-    JAX transpose's.
+    JAX transpose's.  The plan is linear, so a tangent takes the same
+    direction of it (``jvp``); the forward is torch matmuls, so ``vmap``
+    is torch's generated rule.
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, ary, plan, adjoint):
-        ctx.plan = plan
-        ctx.adjoint = adjoint
+    def forward(ary, plan, adjoint):
         with _tf32_matmuls():
             return plan._apply(ary, adjoint)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.plan, ctx.adjoint = inputs
 
     @staticmethod
     def backward(ctx, grad):
         with _tf32_matmuls():
             return ctx.plan._apply(grad, not ctx.adjoint), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        with _tf32_matmuls():
+            return ctx.plan._apply(tangent, ctx.adjoint)
 
 
 class MDFT:

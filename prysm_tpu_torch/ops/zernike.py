@@ -476,25 +476,107 @@ def zernike_bwd_all(plan, coefs, r, t, g):
     return _launch_bwd_all(plan, coefs, r, t, g)
 
 
-class _ZernikeSum(torch.autograd.Function):
+def _item(x, dim, b):
+    """Batch item b of x, batched on ``dim`` (None: not batched; the plan, a
+    NamedTuple, comes with a tuple of Nones)."""
+    return x.select(dim, b) if torch.is_tensor(x) and dim is not None else x
+
+
+def _looped(fn, info, in_dims, *args):
+    """A vmap rule: ``fn`` once per batch item, each output stacked on axis 0.
+
+    The kernels are ctypes launches and take no batched tensor.
+    """
+    outs = [fn(*(_item(a, d, b) for a, d in zip(args, in_dims)))
+            for b in range(info.batch_size)]
+    if torch.is_tensor(outs[0]):
+        return torch.stack(outs), 0
+    return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+
+
+class _ZernikeVJP(torch.autograd.Function):
+    """The cotangents of ``_ZernikeSum`` at a cotangent g: (cg,) for
+    grads='coefs', (cg, gr, gt) for 'all'.
+
+    A Function so that a batched cotangent (``vmap`` of a VJP, as in
+    ``jacrev``) runs the backward once per batch item.  It has no
+    derivative of its own: differentiating the gradient again (``hessian``)
+    raises, as ``jax.hessian`` through the JAX package's ``custom_vjp`` does.
+    """
+
     @staticmethod
-    def forward(ctx, coefs, r, t, plan, grads):
-        ctx.save_for_backward(coefs, r, t)
-        ctx.plan, ctx.grads = plan, grads
+    def forward(g, coefs, r, t, plan, grads):
+        if grads == 'coefs':
+            return (zernike_bwd_coefs(plan, r, t, g).to(coefs.dtype),)
+        cg, gr, gt = zernike_bwd_all(plan, coefs, r, t, g)
+        return cg.to(coefs.dtype), gr.to(r.dtype), gt.to(t.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, coefs, r, t, plan, grads):
+        return _looped(_ZernikeVJP.apply, info, in_dims, g, coefs, r, t, plan, grads)
+
+
+class _ZernikeSum(torch.autograd.Function):
+    """The fused sum, with its backward kernels and the rules of torch.func.
+
+    ``jvp``: the sum is linear in the coefficients, so a coefficient
+    tangent is one more forward call.  A grid tangent goes through the plain
+    version's forward mode on CPU tensors; on CUDA tensors it raises, as
+    ``jax.jacfwd`` through the JAX package's ``custom_vjp`` does.
+    grads='coefs' declares the grids constant, so their tangents add
+    nothing.  ``vmap``: one forward call per batch item.
+    """
+
+    @staticmethod
+    def forward(coefs, r, t, plan, grads):
         return zernike_fwd(plan, coefs, r, t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coefs, r, t, ctx.plan, ctx.grads = inputs
+        ctx.out_dtype = output.dtype
+        ctx.save_for_backward(coefs, r, t)
+        ctx.save_for_forward(coefs, r, t)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         coefs, r, t = ctx.saved_tensors
         if ctx.grads == 'coefs':
-            cg = zernike_bwd_coefs(ctx.plan, r, t, g)
+            cg, = _ZernikeVJP.apply(g, coefs, r, t, ctx.plan, 'coefs')
             # the grids' cotangents are declared zero; made only if asked for
             _, need_r, need_t = ctx.needs_input_grad[:3]
-            return (cg.to(coefs.dtype), torch.zeros_like(r) if need_r else None,
+            return (cg, torch.zeros_like(r) if need_r else None,
                     torch.zeros_like(t) if need_t else None, None, None)
-        cg, gr, gt = zernike_bwd_all(ctx.plan, coefs, r, t, g)
-        return cg.to(coefs.dtype), gr.to(r.dtype), gt.to(t.dtype), None, None
+        return *_ZernikeVJP.apply(g, coefs, r, t, ctx.plan, 'all'), None, None
+
+    @staticmethod
+    def jvp(ctx, dcoefs, dr, dt, *_):
+        coefs, r, t = ctx.saved_tensors
+        out = 0
+        if dcoefs is not None:
+            out = _ZernikeSum.apply(dcoefs, r, t, ctx.plan, ctx.grads)
+        if ctx.grads == 'all' and (dr is not None or dt is not None):
+            if not _on_cpu(r):
+                raise NotImplementedError(
+                    'zernike_sum_pallas has no forward mode in r and t on CUDA tensors '
+                    '(the kernels have none); use CPU tensors or a coefficient tangent')
+            dr = torch.zeros_like(r) if dr is None else dr
+            dt = torch.zeros_like(t) if dt is None else dt
+            _, grid = torch.func.jvp(lambda r_, t_: zernike_fwd_plain(ctx.plan, coefs, r_, t_),
+                                     (r, t), (dr, dt))
+            out = out + grid
+        if torch.is_tensor(out):
+            return out
+        return torch.zeros_like(r, dtype=ctx.out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, coefs, r, t, plan, grads):
+        return _looped(_ZernikeSum.apply, info, in_dims, coefs, r, t, plan, grads)
 
 
 def zernike_sum_pallas(coefs, nms, r, t, norm=True, grads='all'):

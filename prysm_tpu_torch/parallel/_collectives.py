@@ -16,7 +16,9 @@ Megatron's f/g pair:
   cotangent is summed over the axes the work varies on.
 
 ``all_to_all`` transposes a tiled layout; its backward is the opposite
-all-to-all.  Complex tensors travel as ``torch.view_as_real`` views.
+all-to-all.  Each takes ``torch.func``'s transforms: a tangent goes
+through the same collective as the value, and ``vmap`` runs one collective
+on the batched tensor.  Complex tensors travel as ``torch.view_as_real`` views.
 Collectives run on the process group's own stream (NCCL) or thread (gloo);
 nothing is gathered to the host.
 """
@@ -85,24 +87,59 @@ def all_reduce_(x, groups):
 
 
 class _Psum(torch.autograd.Function):
+    """All-reduce forward; backward ``enter``'s forward (the identity).
+
+    The tangent is the all-reduce of the tangent; a batch (``vmap``) is
+    one all-reduce of the batched tensor.  The forward writes into a buffer
+    through the collective, so no rule is generated.
+    """
+
     @staticmethod
-    def forward(ctx, x, groups):
+    def forward(x, groups):
         return all_reduce_(_buffer(x), groups)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.groups = inputs
+
+    @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return _Enter.apply(grad, ctx.groups), None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return _Psum.apply(tangent, ctx.groups)
+
+    @staticmethod
+    def vmap(info, in_dims, x, groups):
+        return _Psum.apply(x, groups), in_dims[0]
 
 
 class _Enter(torch.autograd.Function):
+    """Identity forward; backward ``psum``'s forward (the all-reduce).
+
+    The tangent passes unchanged; a batch passes through whole.
+    """
+
     @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
+    def forward(x, groups):
         return x.view_as(x)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.groups = inputs
+
+    @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(_buffer(grad), ctx.groups), None
+        return _Psum.apply(grad, ctx.groups), None
+
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        return tangent.view_as(tangent)
+
+    @staticmethod
+    def vmap(info, in_dims, x, groups):
+        return _Enter.apply(x, groups), in_dims[0]
 
 
 def psum(x, mesh, axes):
@@ -130,15 +167,34 @@ def _exchange(x, group, d, split_axis, concat_axis):
 
 
 class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; backward and tangent are exchanges too.
+
+    The cotangent takes the opposite exchange (split and concatenation axes
+    swapped), the tangent the same one.  A batch (``vmap``) is one exchange
+    of the batched tensor with both axes moved past the batch axis.
+    """
+
     @staticmethod
-    def forward(ctx, x, group, d, split_axis, concat_axis):
-        ctx.args = group, d, split_axis, concat_axis
+    def forward(x, group, d, split_axis, concat_axis):
         return _exchange(x, group, d, split_axis, concat_axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
 
     @staticmethod
     def backward(ctx, grad):
         group, d, split_axis, concat_axis = ctx.args
-        return _exchange(grad, group, d, concat_axis, split_axis), None, None, None, None
+        return _AllToAll.apply(grad, group, d, concat_axis, split_axis), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _AllToAll.apply(tangent, *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, d, split_axis, concat_axis):
+        x, ndim = x.movedim(in_dims[0], 0), x.ndim - 1
+        return _AllToAll.apply(x, group, d, split_axis % ndim + 1, concat_axis % ndim + 1), 0
 
 
 def all_to_all(x, mesh, axis, split_axis, concat_axis):

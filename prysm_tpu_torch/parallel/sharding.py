@@ -54,6 +54,24 @@ def _local_plan(plan, mesh, wl_axis, tile_axis):
                         pupil_dx=plan.pupil_dx, focal_dx=plan.focal_dx)
 
 
+def _shard_broadband_loss(mesh, plan, amp, modes, wavelengths, weights, I_meas,
+                          wl_axis='wl', tile_axis='ty'):
+    """loss(coefs) of ``shard_broadband_step``: replicated, differentiable by
+    autograd and by ``torch.func``."""
+    local = _local_plan(plan, mesh, wl_axis, tile_axis)
+    wl_local = shard(wavelengths, mesh, wl_axis, 0, 'wavelength count')
+    w_local = shard(weights, mesh, wl_axis, 0, 'wavelength count')
+    I_rows = shard(I_meas, mesh, tile_axis, 0, 'focal row count')
+
+    def loss(coefs):
+        I_partial = broadband_psf(enter(coefs, mesh, (wl_axis, tile_axis)), amp, modes,
+                                  wl_local, w_local, local)
+        resid = psum(I_partial, mesh, wl_axis) - I_rows
+        return psum(torch.sum(resid * resid), mesh, tile_axis)
+
+    return loss
+
+
 def shard_broadband_step(mesh, plan, amp, modes, wavelengths, weights, I_meas,
                          wl_axis='wl', tile_axis='ty'):
     """Build a mesh-sharded broadband phase-retrieval step.
@@ -65,19 +83,14 @@ def shard_broadband_step(mesh, plan, amp, modes, wavelengths, weights, I_meas,
     the data term (the image is nonlinear downstream); the tile psum
     completes the loss.
     """
-    local = _local_plan(plan, mesh, wl_axis, tile_axis)
-    wl_local = shard(wavelengths, mesh, wl_axis, 0, 'wavelength count')
-    w_local = shard(weights, mesh, wl_axis, 0, 'wavelength count')
-    I_rows = shard(I_meas, mesh, tile_axis, 0, 'focal row count')
+    loss = _shard_broadband_loss(mesh, plan, amp, modes, wavelengths, weights, I_meas,
+                                 wl_axis, tile_axis)
 
     def step(coefs):
         c = coefs.detach().requires_grad_(True)
         with torch.enable_grad():
-            I_partial = broadband_psf(enter(c, mesh, (wl_axis, tile_axis)), amp, modes,
-                                      wl_local, w_local, local)
-            resid = psum(I_partial, mesh, wl_axis) - I_rows
-            loss = psum(torch.sum(resid * resid), mesh, tile_axis)
-            grad, = torch.autograd.grad(loss, c)
-        return loss.detach(), grad
+            value = loss(c)
+            grad, = torch.autograd.grad(value, c)
+        return value.detach(), grad
 
     return step

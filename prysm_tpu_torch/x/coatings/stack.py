@@ -174,6 +174,17 @@ def _affine_prefix(A, G):
     return x
 
 
+def _suffix_doubling_jvp(mats, dmats):
+    """The tangent of ``_suffix_doubling`` at mats along dmats: the same
+    doubling over (S, dS) pairs, d(AB) = dA B + A dB."""
+    S, dS, k, n = mats, dmats, 1, mats.shape[0]
+    while k < n:
+        dS = torch.cat([_mul(dS[:-k], S[k:]) + _mul(S[:-k], dS[k:]), dS[-k:]])
+        S = torch.cat([_mul(S[:-k], S[k:]), S[-k:]])
+        k *= 2
+    return dS
+
+
 class _SuffixProducts(torch.autograd.Function):
     """S_k = M_k M_{k+1} ... M_{N-1}, with its backward written out.
 
@@ -182,14 +193,23 @@ class _SuffixProducts(torch.autograd.Function):
     prefix recurrence, also by doubling), and M_k's is Gt_k S_{k+1}^H (S_N
     the identity), torch's convention for a complex product.  Autograd
     through the doubling's slices and concatenations would allocate and
-    copy full-size zeros for each of them.
+    copy full-size zeros for each of them.  The tangent is the product
+    rule carried through the same doubling (``_suffix_doubling_jvp``), and
+    ``vmap`` is torch's generated rule: every step is a torch operation.
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, mats):
-        S = _suffix_doubling(mats)
-        ctx.save_for_backward(mats, S)
-        return S
+    def forward(mats):
+        # a view, not mats itself, where there is nothing to multiply (N <= 1)
+        return _suffix_doubling(mats).view_as(mats)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        mats, = inputs
+        ctx.save_for_backward(mats, output)
+        ctx.save_for_forward(mats)
 
     @staticmethod
     def backward(ctx, G):
@@ -198,6 +218,11 @@ class _SuffixProducts(torch.autograd.Function):
         Gt = _affine_prefix(A, G)
         S_next = torch.cat([S[1:], _eye2(S).expand_as(S[:1])])
         return _mul(Gt, _ct(S_next))
+
+    @staticmethod
+    def jvp(ctx, dmats):
+        mats, = ctx.saved_tensors
+        return _suffix_doubling_jvp(mats, dmats)
 
 
 def _suffix_products(mats):
