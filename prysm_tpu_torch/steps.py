@@ -1086,6 +1086,38 @@ def sh_geometry(N):
     return N // SH_SAMPLES, pitch, SH_SPOT * pitch * dx / (WVL / 1e3)
 
 
+class _StepGraph:
+    """A step's forward and backward captured as one CUDA graph at one input signature.
+
+    Built from a step already run once eager: the step runs once more, eager,
+    on the capture's side stream, which makes its per-stream and cached state
+    outside the capture (the Zernike reduction ticket, cuFFT plans, cuBLAS
+    workspaces; ``chip_smoke.device_ops_per_call`` takes the same order for the
+    same reason), then is captured on that stream from static copies of the
+    inputs.  A call copies the caller's inputs into the static ones on the
+    current stream, replays there and returns clones of the static outputs,
+    which a later replay overwrites.
+    """
+
+    def __init__(self, step, *inputs):
+        self.inputs = tuple(x.detach().clone() for x in inputs)
+        current = torch.cuda.current_stream()
+        stream = torch.cuda.Stream(current.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            step(*self.inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.outputs = step(*self.inputs)
+        current.wait_stream(stream)
+
+    def __call__(self, *inputs):
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x.detach())
+        self.graph.replay()
+        return tuple(x.clone() for x in self.outputs)
+
+
 class _WavefrontControl:
     """The wavefront-control step; call it with (actuators, coefficients).
 
@@ -1124,6 +1156,7 @@ class _WavefrontControl:
                                      shift=True).to(complex_for(r.dtype))
         self.sensor_tf = angular_spectrum_transfer_function(N, WVL, self.pupil.dx, self.sh_efl,
                                                             dtype=r.dtype, device=r.device)
+        self._graphs = {}  # signature -> its _StepGraph; None while it is warming up
 
     def opd(self, actuators, coefs):
         """The Zernike sum (fused, grads='coefs'; or over the mode stack) plus the DM's
@@ -1148,15 +1181,45 @@ class _WavefrontControl:
         return torch.sum((self.psf(self.opd(actuators, coefs)) - self.I_ref) ** 2)
 
     def __call__(self, actuators, coefs):
-        """(loss, actuator gradient, coefficient gradient)."""
+        """(loss, actuator gradient, coefficient gradient): eager, or by replaying the
+        step's CUDA graph for the inputs' signature (``build_wavefront_control``)."""
         with span('steps.wfc.step'):
-            a = actuators.detach().requires_grad_(True)
-            c = coefs.detach().requires_grad_(True)
-            with torch.enable_grad():
-                loss = self.loss(a, c)
-            with span('steps.wfc.backward'):
-                ga, gc = torch.autograd.grad(loss, (a, c))
-            return loss.detach(), ga, gc
+            key = self._graph_key(actuators, coefs)
+            if key is None:
+                return self._step(actuators, coefs)
+            if key not in self._graphs:  # the signature's first call warms it up
+                self._graphs[key] = None
+                return self._step(actuators, coefs)
+            if self._graphs[key] is None:
+                with span('steps.wfc.capture'):
+                    self._graphs[key] = _StepGraph(self._step, actuators, coefs)
+            with span('steps.wfc.replay'):
+                return self._graphs[key](actuators, coefs)
+
+    def _step(self, actuators, coefs):
+        """The eager step: the loss by autograd's forward, both gradients by ``grad``."""
+        a = actuators.detach().requires_grad_(True)
+        c = coefs.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = self.loss(a, c)
+        with span('steps.wfc.backward'):
+            ga, gc = torch.autograd.grad(loss, (a, c))
+        return loss.detach(), ga, gc
+
+    def _graph_key(self, actuators, coefs):
+        """The inputs' signature (shapes, dtypes, device) where the step may run as a CUDA
+        graph: plain tensors on the step's CUDA device, the current one, whose current
+        stream is not capturing; None where it runs eager."""
+        device = self.pupil.r.device
+        if device.type != 'cuda':
+            return None
+        for x in (actuators, coefs):
+            if (type(x) is not torch.Tensor or x.device != device
+                    or torch._C._functorch.is_functorch_wrapped_tensor(x)):
+                return None
+        if device.index != torch.cuda.current_device() or torch.cuda.is_current_stream_capturing():
+            return None
+        return actuators.shape, actuators.dtype, coefs.shape, coefs.dtype, device
 
     @torch.no_grad()
     def sensor(self, actuators, coefs):
@@ -1188,6 +1251,18 @@ def build_wavefront_control(N=1024, nact=WFC_NACT, fN=256, matmul_precision='hig
     over, ``interop.pupil_from_numpy`` and ``interop.dm_from_numpy``); the
     starting state is ``wfc_state(nact)`` (``.pupil.coefs``,
     ``.dm.actuators``).
+
+    On the card the step runs as one CUDA graph of its forward and
+    backward, chosen by what the inputs show and nothing else: where the
+    actuators and coefficients are plain tensors on the step's CUDA device
+    (the current one) and the current stream is not capturing.  The first
+    call with a signature (their shapes, dtypes and device) runs eager; the
+    second runs it once more eager on a side stream, captures it there
+    (span ``steps.wfc.capture``) and replays; later calls replay (span
+    ``steps.wfc.replay``), with the same kernels in the same order.  A
+    replay copies the inputs into the graph's own, never writing the
+    caller's, and returns fresh tensors.  Anything else (CPU tensors,
+    ``torch.func`` transforms, another call's capture) runs the eager step.
     """
     return _WavefrontControl(N, nact, fN, matmul_precision, fused=fused, pupil=pupil,
                              dm=dm, dtype=dtype, device=device)

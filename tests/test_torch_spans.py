@@ -6,7 +6,9 @@ wavefront-control step under ``torch.profiler`` (float64, N = 128, 6 x 6
 actuators, fN = 32, the sizes of ``test_torch_wavefront_control.py``)
 records its span tree under one root, with autograd's own operations of
 the DM's backward inside ``x.dm.render.bwd``; the step's loss and gradients
-are bit-identical with spans on and off; ``torch.func.grad`` runs through
+are bit-identical with spans on and off; on CPU tensors the step stays eager
+(no ``steps.wfc.capture`` or ``steps.wfc.replay`` span, the eager body's
+results); ``torch.func.grad`` runs through
 the render with spans on; a span on another thread takes the caller's open
 span as parent, and threads opening spans at once lose none; the
 collector's bound, its drop count, ``reset()`` and ``summary()``'s self
@@ -134,6 +136,20 @@ def test_spans_leave_the_step_bit_identical(step):
     for on in (profiled, collected):
         assert all(torch.equal(x, y) for x, y in zip(off, on))
     assert profiling.summary()['roots'] == {STEP: 2}
+
+
+def test_cpu_step_stays_eager_and_opens_no_graph_span(step):
+    """On CPU tensors the step never captures or replays a CUDA graph: the calls that on
+    the card would warm up, capture and replay open neither graph span and give the
+    eager body's results bit for bit."""
+    w, a, c = step
+    eager = w._step(a, c)
+    with profiling.collect():
+        calls = [w(a, c) for _ in range(3)]
+    s = profiling.summary()
+    assert s['roots'] == {STEP: 3} and w._graphs == {}
+    assert not {'steps.wfc.capture', 'steps.wfc.replay'} & set(s['spans'])
+    assert all(equal for out in calls for equal in map(torch.equal, out, eager))
 
 
 def test_func_grad_through_the_render_with_spans_on(step):
@@ -278,7 +294,8 @@ def test_sync_counter_counts_a_planted_warning():
 
 
 READERS = ['program_host_ms.wfc', 'autograd_host_ms.wfc', 'dm_host_ms.wfc',
-           'zernike_host_us.wfc', 'mdft_host_us.wfc', 'syncs_per_step.wfc']
+           'zernike_host_us.wfc', 'mdft_host_us.wfc', 'syncs_per_step.wfc',
+           'graph_replay_share.wfc']
 
 
 @pytest.mark.parametrize('name', READERS)
@@ -296,7 +313,7 @@ def test_reader_is_none_without_root_spans(name, monkeypatch):
 
 def _synthetic(collector):
     """Two steps of the control step's tree, host ms chosen by hand; one sync in the first
-    step's render."""
+    step's render; a ``steps.wfc.replay`` span in the second."""
     ms = 1_000_000
     for k in range(2):
         t0 = 100 * k * ms
@@ -316,11 +333,13 @@ def _synthetic(collector):
         rec('x.dm.render.bwd', back, 5, 6)
         rec('ops.zernike.bwd_coefs', back, 6, 6.5)
         rec('fttools.mdft.adjoint', back, 6.5, 7)
+        if k:
+            rec('steps.wfc.replay', root, 9, 9.5)
 
 
 EXPECTED = {'program_host_ms.wfc': 10.0, 'autograd_host_ms.wfc': 2.0, 'dm_host_ms.wfc': 2.5,
             'zernike_host_us.wfc': 1000.0, 'mdft_host_us.wfc': 1000.0,
-            'syncs_per_step.wfc': 0.5}
+            'syncs_per_step.wfc': 0.5, 'graph_replay_share.wfc': 0.5}
 
 
 @pytest.mark.parametrize('name', READERS)
