@@ -5,7 +5,10 @@ The JAX doc (``docs/<relpath>``) runs block by block in one namespace as
 the draws of ``jax.random.uniform`` / ``normal`` recorded; the port's
 (``docs/torch/<relpath>``) runs through ``prysm_tpu_torch.docs.run`` on the
 CPU in float64 with those draws replayed into ``torch.rand`` / ``randn``.
-Both run in the test's ``tmp_path``.  A result is compared by
+Both run in the test's ``tmp_path``.  A port doc that replays no draws runs
+once: ``run_pair`` reads the run that ``test_port_doc_executes`` made.  The
+docs modules give ``relpath`` module scope, so that a doc's two tests run one
+after the other and one kept run waits at a time.  A result is compared by
 ``max |port - jax| / max |jax|`` (of the peak), or as named in the file's
 table.
 """
@@ -79,10 +82,14 @@ def run_jax(relpath):
     return ns, recorded
 
 
+_PORT_RUNS = {}
+
+
 def run_port(relpath, monkeypatch, tmp_path, draws=None):
     """The port doc's namespace, run on the CPU in float64 in ``tmp_path``: every named
     result present, no drawing block skipped, no kernel launched (the wrappers take their
-    plain versions on CPU tensors)."""
+    plain versions on CPU tensors).  A run of a doc that ``docs.REPLAYED`` does not name
+    is kept for ``run_pair``."""
     monkeypatch.setattr(config, '_device', 'cpu')
     monkeypatch.setattr(config, '_precision', torch.float64)
     monkeypatch.chdir(tmp_path)
@@ -93,16 +100,23 @@ def run_port(relpath, monkeypatch, tmp_path, draws=None):
     for name in docs.RESULTS.get(relpath, ()):
         docs.value(ns, name)
     assert all(v == 0 for v in {**tzk.LAUNCHES, **tnoise.LAUNCHES}.values())
+    if draws is None and relpath not in docs.REPLAYED:
+        _PORT_RUNS[relpath] = ns
     return ns
 
 
 def run_pair(relpath, monkeypatch, tmp_path):
-    """(JAX namespace, port namespace) of one doc, both run in ``tmp_path``, the port's
-    as ``run_port`` runs it, with the JAX doc's draws where ``docs.REPLAYED`` says."""
+    """(JAX namespace, port namespace) of one doc, the JAX one run in ``tmp_path``.  The
+    port's runs there as ``run_port`` runs it with the JAX doc's draws where
+    ``docs.REPLAYED`` says; otherwise it is the kept run, handed out once, or a new run
+    where none was kept."""
     monkeypatch.chdir(tmp_path)
     jns, recorded = run_jax(relpath)
-    draws = docs.Draws(recorded) if relpath in docs.REPLAYED else None
-    return jns, run_port(relpath, monkeypatch, tmp_path, draws)
+    if relpath in docs.REPLAYED:
+        return jns, run_port(relpath, monkeypatch, tmp_path, docs.Draws(recorded))
+    if relpath in _PORT_RUNS:
+        return jns, _PORT_RUNS.pop(relpath)
+    return jns, run_port(relpath, monkeypatch, tmp_path)
 
 
 def noise_stats(got, want):

@@ -4,8 +4,16 @@
 ``merit`` (every term, alone and summed), ``problem``, ``refine`` (bounded
 L-BFGS-B and damped least squares), ``needle`` (the needle function,
 insertion, clean-up, synthesis with the same layer count),
-``common_materials`` and ``plotting``.  Inputs from seeded numpy
-generators, ``jax_enable_x64``, ``config.precision = 64``, CPU.
+``common_materials`` and ``plotting``; and the coating design path,
+``steps.build_coating_design`` at 9 layers and 32 wavelengths (8 in the
+reflect band, 24 in the transmit band, 2 angles) with a needle synthesis at
+16 wavelengths x 3 angles: its start, its merit and gradient, its bounded
+L-BFGS-B refinement and its synthesis against the JAX package's
+``x.coatings`` on the same numbers, and its damped least squares, where the
+JAX package's active-set loop raises, held to the merit it lowers and the
+floor it keeps.  Inputs from seeded numpy generators, ``jax_enable_x64``,
+``config.precision = 64``, CPU.  The JAX package's forward evaluation of
+each design and polarization is made once a module (``_jax_forward``).
 
 The complex-gradient convention: a cotangent c pairs as
 dF = Re(sum(conj(c) dz)).  ``jax.grad`` returns the conjugate of that pairing
@@ -22,8 +30,11 @@ order); optimizer iterates <= 1e-10 relative over the first 20 iterations,
 but damped least squares' <= 1e-9: its central-difference Jacobian divides
 the residuals' last-ulp differences (the two packages round the transfer
 matrices differently) by its 1e-6 step, eps / h = 2.2e-10; a synthesis's
-layers equal and its thicknesses and merit <= 1e-6 relative.
+layers equal and its thicknesses and merit <= 1e-6 relative (the design
+path's refines 15 iterations a round).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,13 +44,14 @@ import jax.numpy as jnp
 from prysm_tpu.x import coatings as jc
 from prysm_tpu.x.coatings import diff as jdiff
 
+from prysm_tpu_torch import steps
 from prysm_tpu_torch.conf import config
 from prysm_tpu_torch.x import coatings as tc
 from prysm_tpu_torch.x.coatings import diff as tdiff
 
 torch.set_num_threads(2)
 
-BAR, FD_BAR, ITERATE_BAR, DLS_BAR = 1e-12, 1e-6, 1e-10, 1e-9
+BAR, FD_BAR, ITERATE_BAR, DLS_BAR, SYNTH_BAR = 1e-12, 1e-6, 1e-10, 1e-9, 1e-6
 SUB = 1.52
 
 
@@ -71,6 +83,14 @@ def _stacks(design):
     return tc.Stack(n, d, SUB), jc.Stack(n, d, SUB)
 
 
+@functools.cache
+def _jax_forward(design, pol):
+    """The JAX package's forward evaluation of ``DESIGNS[design]`` on (WVL, THETA), made
+    once a module: the gradient and cotangent tests only read it."""
+    n, d = DESIGNS[design]
+    return jdiff.forward_eval(jc.Stack(n, d, SUB), WVL, THETA, pol)
+
+
 def _seeds(fwd_shape_n, rng):
     """Seeds of every kind at the evaluation's shapes: R, T (calc), A (N), |E|^2 (N + 1)."""
     calc = (7, 2)
@@ -93,10 +113,10 @@ SEED_SETS = {'R': ('dR',), 'RT': ('dR', 'dT'), 'A': ('dA',), 'Esq': ('dEsq',),
 @pytest.mark.parametrize('pol', ['s', 'p'])
 @pytest.mark.parametrize('design', list(DESIGNS))
 def test_thickness_and_index_gradients_match_jax(design, pol, keys):
-    mine, ref = _stacks(DESIGNS[design])
+    mine = tc.Stack(*DESIGNS[design], SUB)
     seeds = _seeds(len(mine), np.random.default_rng(len(keys)))
     st, sj = _pair_seeds(seeds, SEED_SETS[keys])
-    ft, fj = tdiff.forward_eval(mine, WVL, THETA, pol), jdiff.forward_eval(ref, WVL, THETA, pol)
+    ft, fj = tdiff.forward_eval(mine, WVL, THETA, pol), _jax_forward(design, pol)
     for q in ('R_value', 'T_value', 'A_value', 'Esq_value'):
         _close(getattr(ft, q), getattr(fj, q), floor=1.0)
     _close(tdiff.thickness_gradient(ft, **st), jdiff.thickness_gradient(fj, **sj), floor=1.0)
@@ -143,13 +163,13 @@ def _random_direction(shape, rng):
 @pytest.mark.parametrize('design', list(DESIGNS))
 def test_assembly_cotangent_pairs_with_dM_and_matches_conjugated_jax(design, pol):
     """c_M against dF = Re(sum(conj(c_M) dM)) by central differences of F(M + h dM)."""
-    mine, ref = _stacks(DESIGNS[design])
+    mine = tc.Stack(*DESIGNS[design], SUB)
     rng = np.random.default_rng(11)
     dR, dT = rng.standard_normal((7, 2)), rng.standard_normal((7, 2))
     ft = tdiff.forward_eval(mine, WVL, THETA, pol)
     c_M = tdiff.assembly_cotangent(ft, dR=torch.as_tensor(dR), dT=torch.as_tensor(dT))
-    _close(c_M, jdiff.assembly_cotangent(jdiff.forward_eval(ref, WVL, THETA, pol),
-                                         dR=jnp.asarray(dR), dT=jnp.asarray(dT)))
+    _close(c_M, jdiff.assembly_cotangent(_jax_forward(design, pol), dR=jnp.asarray(dR),
+                                         dT=jnp.asarray(dT)))
     eta0, eta_sub = ft.eta0, ft.eta_sub
 
     def F(M):
@@ -174,12 +194,12 @@ def test_assembly_cotangent_pairs_with_dM_and_matches_conjugated_jax(design, pol
 @pytest.mark.parametrize('pol', ['s', 'p'])
 @pytest.mark.parametrize('design', list(DESIGNS))
 def test_layer_cotangents_pair_with_d_beta_eta(design, pol):
-    mine, ref = _stacks(DESIGNS[design])
+    mine = tc.Stack(*DESIGNS[design], SUB)
     seeds = _seeds(len(mine), np.random.default_rng(13))
     st, sj = _pair_seeds(seeds, SEED_SETS['all'])
     ft = tdiff.forward_eval(mine, WVL, THETA, pol)
     cb, ce = tdiff.layer_cotangents(ft, **st)
-    cbj, cej = jdiff.layer_cotangents(jdiff.forward_eval(ref, WVL, THETA, pol), **sj)
+    cbj, cej = jdiff.layer_cotangents(_jax_forward(design, pol), **sj)
     for a, b in zip(cb + ce, cbj + cej):
         _close(a, b)
     # pin the convention: F as a function of the (beta, eta) leaves, along complex directions
@@ -506,3 +526,102 @@ def test_plotting_draws():
         assert fig_ax[1] is not None
     with pytest.raises(ValueError):
         tplot.plot_spectrum(stack, wvl, quantities=('X',))
+
+
+# ---------------------------------------------------------------------------
+# the coating design path (steps.build_coating_design)
+# ---------------------------------------------------------------------------
+
+SMALL = dict(pairs=4, samples=(8, 24), needle_samples=16,
+             needle=dict(z_samples=40, max_layers=8, max_iters=2, refine_kwargs={'maxiter': 15}))
+
+
+def _rel(a, b):
+    a, b = np.asarray(_host(a), np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.fixture(scope='module')
+def path_design():
+    return steps.build_coating_design(**SMALL, dtype=torch.float64, device='cpu')
+
+
+def _jax_terms(design, needle=False):
+    """The design's merit terms, built by the JAX package on the port's grids."""
+    terms = design.needle_merit if needle else design.merit
+    out = []
+    for term in terms:
+        cls = getattr(jc, type(term).__name__)
+        out.append(cls(np.asarray(term.wvl), np.asarray(term.theta), pol=term.pol,
+                       target=float(term.target)))
+    return out
+
+
+def _jax_stack(stack):
+    return jc.Stack(stack.indices, _host(stack.thicknesses), stack.substrate_index,
+                    stack.ambient_index)
+
+
+def test_design_start_and_merit(path_design):
+    assert len(path_design.stack0) == 9
+    assert sum(t.wvl.numel() for t in path_design.merit) == 32
+    quarter = steps.COATING_WVL0 / (4 * np.asarray(path_design.stack0.indices))
+    rng = np.random.default_rng(steps.COATING_SEED)
+    np.testing.assert_array_equal(_host(path_design.stack0.thicknesses),
+                                  quarter * (1 + steps.COATING_SPREAD * rng.standard_normal(9)))
+    ref = jc.MeritFunction(_jax_terms(path_design))
+    mine = path_design.problem()
+    f, g = mine.fg(mine.x0())
+    fj, gj = ref.value_and_grad(_jax_stack(path_design.stack0))
+    assert f == pytest.approx(fj, rel=BAR)
+    assert _rel(g, gj) <= BAR
+
+
+def test_design_refine_lbfgsb_matches_jax(path_design):
+    """The path's bounded L-BFGS-B refinement, its first 20 iterations against the JAX package's."""
+    mine = path_design.refine('lbfgsb', 20)
+    ref = jc.refine(_jax_stack(path_design.stack0), _jax_terms(path_design), method='lbfgsb',
+                    maxiter=20, min_thickness=steps.COATING_MIN_THICKNESS)
+    recs_t, recs_j = mine.optimizer_result.records, ref.optimizer_result.records
+    assert len(recs_t) == len(recs_j) == 20
+    for a, b in zip(recs_t, recs_j):
+        assert _rel(a.x_next, b.x_next) <= ITERATE_BAR
+    start = sum(t.value(path_design.stack0) for t in path_design.merit)
+    assert mine.merit < 0.6 * start
+    assert mine.merit == pytest.approx(ref.merit, rel=ITERATE_BAR)
+    assert mine.x.dtype == torch.float64
+
+
+def test_design_refine_lm_lowers_the_merit_where_jax_raises(path_design):
+    start = sum(t.value(path_design.stack0) for t in path_design.merit)
+    with pytest.raises(ValueError, match='shape mismatch'):
+        jc.refine(_jax_stack(path_design.stack0), _jax_terms(path_design), method='lm', maxiter=10,
+                  min_thickness=steps.COATING_MIN_THICKNESS)
+    res = path_design.refine('lm', 10)
+    assert res.merit < start
+    assert float(res.stack.thicknesses.min()) >= steps.COATING_MIN_THICKNESS - 1e-12
+    # 2n + 1 residual evaluations an iteration, and the backtracking's
+    assert res.optimizer_result.nfev >= res.nit * (2 * 9 + 1)
+
+
+def test_design_synthesis_matches_jax(path_design):
+    mine = path_design.synthesize()
+    ref = jc.synthesize(_jax_stack(path_design.needle_start),
+                        _jax_terms(path_design, needle=True), steps.NEEDLE_MATERIALS,
+                        **path_design.needle)
+    assert (mine.n_layers, mine.iterations) == (ref.n_layers, ref.iterations)
+    assert mine.stack.indices == ref.stack.indices
+    assert _rel(mine.stack.thicknesses, ref.stack.thicknesses) <= SYNTH_BAR
+    assert mine.merit == pytest.approx(ref.merit, rel=SYNTH_BAR)
+    assert mine.n_layers > 2
+
+
+def test_design_problem_runs_in_its_precision(path_design):
+    """The design's problem evaluates in the path's dtype whatever config says outside."""
+    with torch.no_grad():
+        config.precision = torch.float32
+        try:
+            f, g = path_design.problem().fg(path_design.problem().x0())
+        finally:
+            config.precision = torch.float64
+    assert g.dtype == torch.float64

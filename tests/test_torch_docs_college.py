@@ -52,13 +52,13 @@ BARS = {
 }
 
 
-@pytest.mark.parametrize('relpath', DOCS)
+@pytest.mark.parametrize('relpath', DOCS, scope='module')
 def test_port_doc_executes(relpath, monkeypatch, tmp_path):
     """Block by block through the port alone, f64 on the CPU, no kernel launched."""
     td.run_port(relpath, monkeypatch, tmp_path)
 
 
-@pytest.mark.parametrize('relpath', DOCS)
+@pytest.mark.parametrize('relpath', DOCS, scope='module')
 def test_port_doc_matches_jax(relpath, monkeypatch, tmp_path):
     jns, tns = td.run_pair(relpath, monkeypatch, tmp_path)
     td.compare(relpath, jns, tns, BARS.get(relpath, {}))
