@@ -1818,8 +1818,10 @@ def opd_cotangent(w, acts, coefs):
 
 def phase_wavefront_control(dev, pieces):
     """The wavefront-control step in f32 (TF32 MDFT) through its entry point for STEPS steps,
-    against f64 on the card; its Shack-Hartmann frame; the hand-written adjoint chain in f64.
+    against f64 on the card; its Shack-Hartmann frame; the hand-written adjoint chain in f64;
+    the DM fold's warp_bwd kernel against its plain version, in f32 and f64.
     ``pieces``: the launches of each Zernike kernel that the 36-mode plan takes (phase 2)."""
+    from prysm_tpu_torch.ops import warp as warp_op
     from prysm_tpu_torch.steps import (WFC_NACT, WFC_NMS, build_wavefront_control,
                                        make_cfg2_plan, sh_geometry)
     from prysm_tpu_torch.x.dm import DM
@@ -1830,11 +1832,12 @@ def phase_wavefront_control(dev, pieces):
     wfc = build_wavefront_control(N, fN=FN, device=dev)
     a, c = wfc.dm.actuators, wfc.pupil.coefs
     reset_launches()
-    per_step = []
+    per_step, warp_steps = [], []
     for i in range(STEPS):
-        before = launch_counts()
+        before, warp_before = launch_counts(), warp_op.LAUNCHES['warp_bwd']
         loss, ga, gc = synced(lambda: wfc(a, c))
         per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        warp_steps.append(warp_op.LAUNCHES['warp_bwd'] - warp_before)
         require(bool(torch.isfinite(loss)) and bool(torch.isfinite(ga).all())
                 and bool(torch.isfinite(gc).all()), f'wavefront-control step {i}: not finite')
         if i == 0:
@@ -1847,6 +1850,12 @@ def phase_wavefront_control(dev, pieces):
              + [dict.fromkeys(want, 0)] * (STEPS - 2))
     require(per_step == wants,
             f'the wavefront-control steps did not launch {wants}: {per_step}')
+    # the fold's backward: one launch eager, two in the capture's step, none replayed (on
+    # the CPU the plain version, no launch)
+    want_warp = [1, 2] + [0] * (STEPS - 2) if torch.device(dev).type == 'cuda' else [0] * STEPS
+    print(f'  warp_bwd launches per wavefront-control step: {warp_steps}', flush=True)
+    require(warp_steps == want_warp,
+            f'the wavefront-control steps did not launch warp_bwd {want_warp}: {warp_steps}')
     require(ga.shape == (WFC_NACT, WFC_NACT) and gc.shape == (len(WFC_NMS),)
             and ga.dtype == gc.dtype == torch.float32, 'wavefront-control gradients: shape/dtype')
     a, c = wfc.dm.actuators, wfc.pupil.coefs
@@ -1889,7 +1898,17 @@ def phase_wavefront_control(dev, pieces):
     print(f'  folded DM (10 degrees): DM.render_adjoint of the OPD cotangent vs autograd '
           f'{chain_fold:.4e} (rel; 1 - cos 10 deg = {1 - math.cos(math.radians(10)):.4e})',
           flush=True)
+    # the fold's backward kernel against its plain version, on the step's plan (f32) and
+    # the f64 reference's: samples that differ
+    warp_diff = []
+    for plan in (wfc.dm.warp_plan, ref.dm.warp_plan):
+        gen = torch.Generator(device=dev).manual_seed(22)
+        cot = torch.randn(plan.out_shape, generator=gen, device=dev, dtype=plan.dtype)
+        kern, plain = warp_op.warp_bwd(plan, cot), warp_op.warp_bwd_plain(plan, cot)
+        warp_diff.append(float((kern != plain).sum()))
     run_checks([
+        ('DM fold warp_bwd kernel vs plain, f32 (samples that differ)', warp_diff[0], 0),
+        ('DM fold warp_bwd kernel vs plain, f64 (samples that differ)', warp_diff[1], 0),
         ('OPD, fused f32 vs f64 mode stack (peak rel, same grids)', rel(opd, opd64), 1e-6),
         ('PSF, f32 MDFT products (peak rel)', rel(psf_f32, psf64), 2e-5),
         ('PSF, TF32 MDFT (peak rel)', rel(psf, psf64), WFC_TF32_PSF_BAR),

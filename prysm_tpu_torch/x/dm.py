@@ -8,6 +8,12 @@ The render chain is a function of the actuator array that autograd
 differentiates (the actuators are written into the poke array by a slice
 assignment); ``render_adjoint`` is the hand-written reverse chain.
 
+The projection's grids are fixed once the DM is built, so a rotated DM
+plans its warp then (``ops.warp.WarpPlan``): the render pulls through
+``ops.warp.warp_planned``, whose forward is ``coordinates.warp``'s bit for
+bit and whose backward is one gather kernel over the plan's transpose in
+place of autograd's sorted scatter.
+
 A DM works in its influence function's dtype and on its device: the
 lattice, the transfer function (built once with ``torch.fft`` there), the
 projection grids and the obliquity.
@@ -22,6 +28,7 @@ from ..mathops import is_odd
 from ..fttools import fourier_resample, crop_center, pad2d
 from ..convolution import apply_transfer_functions
 from ..coordinates import warp, apply_homography, make_rotation_matrix
+from ..ops.warp import WarpPlan, warp_planned
 from ..profiling import backward_span, span
 
 __all__ = ['prepare_actuator_lattice', 'prepare_fwd_reverse_projection_coordinates', 'DM']
@@ -130,9 +137,11 @@ class DM:
                                                                   device=dev)
             self.projx, self.projy = fwd
             self.invprojx, self.invprojy = rev
+            self.warp_plan = WarpPlan(self.projy, self.projx, s)
         else:
             self.projx = self.projy = None
             self.invprojx = self.invprojy = None
+            self.warp_plan = None
 
         tf = torch.fft.fft2(self.ifn)
         if shift[0] != 0 or shift[1] != 0:
@@ -170,7 +179,7 @@ class DM:
         """Function actuators -> surface, differentiable by autograd.
 
         Its spans: ``x.dm.render``, and ``x.dm.render.bwd`` around autograd's
-        backward of it (the gather's and the convolution's).
+        backward of it (the planned warp's and the convolution's).
         """
         def _render(actuators):
             with span('x.dm.render'):
@@ -179,7 +188,7 @@ class DM:
                 poke_arr[self.iyy, self.ixx] = actuators
                 sfe = apply_transfer_functions(poke_arr, None, self.tf, shift=False)
                 if self.needs_rot:
-                    warped = warp(sfe, self.projx, self.projy)
+                    warped = warp_planned(sfe, self.warp_plan)
                 else:
                     warped = sfe
                 if wfe:

@@ -10,12 +10,13 @@ from prysm_tpu_torch.ops import _cuda
 
 def test_each_shipped_source_is_keyed_alone():
     names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu'))
-    assert names == ['noise', 'zernike']
-    for name in names:
+    assert names == ['noise', 'warp', 'zernike']
+    for name in ('noise', 'zernike'):
         # each source and the one header both share (sincos_reduced)
         assert _cuda._sources(name) == [_cuda.CSRC / f'{name}.cu', _cuda.CSRC / 'sincos.cuh']
+    assert _cuda._sources('warp') == [_cuda.CSRC / 'warp.cu']  # no local header
     paths = {_cuda.library_path(n) for n in names}
-    assert len(paths) == 2 and all(p.parent == _cuda.BUILD for p in paths)
+    assert len(paths) == 3 and all(p.parent == _cuda.BUILD for p in paths)
 
 
 def test_an_edit_rebuilds_only_its_own_library(tmp_path, monkeypatch):

@@ -24,7 +24,8 @@ from prysm_tpu.x import shack_hartmann as jsh, sri as jsri
 import prysm_tpu_torch.propagation as tprop
 from prysm_tpu_torch import interop
 from prysm_tpu_torch.conf import config
-from prysm_tpu_torch.coordinates import make_xy_grid as tgrid, cart_to_polar as tc2p
+from prysm_tpu_torch.coordinates import make_xy_grid as tgrid, cart_to_polar as tc2p, warp
+from prysm_tpu_torch.ops import warp as tops_warp
 from prysm_tpu_torch.geometry import circle as tcircle
 from prysm_tpu_torch.x import dm as tdm, fibers as tfib, pdi as tpdi, polarization as tpol
 from prysm_tpu_torch.x import shack_hartmann as tsh, sri as tsri
@@ -115,6 +116,68 @@ def test_dm_autograd_matches_jax_grad_and_the_inner_product_identity(case):
     grad_j = jax.grad(lambda aa: jnp.sum(render_j(aa) * jnp.asarray(y)))(jnp.asarray(acts))
     assert _rel(grad, grad_j) <= BAR
     assert float(lhs) == pytest.approx(float(torch.sum(a.detach() * grad)), rel=1e-12)
+
+
+@pytest.mark.parametrize('check', ['autograd', 'func', 'nan'])
+@pytest.mark.parametrize('case', [c for c in DM_CASES if 'rot' in DM_CASES[c]])
+def test_dm_planned_warp_matches_autograd_through_the_lookup(case, check, monkeypatch):
+    """A rotated DM pulls through its ``ops.warp`` plan: the forward is
+    ``coordinates.warp``'s bit for bit, and the backward (the kernel's plain version on
+    the CPU) is autograd's through ``_bilinear_lookup`` to 1e-13, alone and through the
+    render, where only the order of each source sample's sum differs; ``torch.func``'s
+    grad, vjp, jvp and vmap (of the warp, and of the render's VJP) agree with the eager
+    gradient; a NaN in the cotangent reaches the source samples it reaches there."""
+    acts = np.random.default_rng(0).standard_normal((8, 8))
+    t = tdm.DM(_ifn(), Nout=96, Nact=8, sep=8, **DM_CASES[case])
+    plan = t.warp_plan
+    rng = np.random.default_rng(5)
+    img = _t(rng.standard_normal(plan.src_shape)).requires_grad_(True)
+    g = _t(rng.standard_normal(plan.out_shape))
+    render = t.render_fn(wfe=True)
+    y = _t(rng.standard_normal((96, 96)))
+    a = _t(acts)
+
+    def eager_grad():
+        aa = a.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sum(render(aa) * y), aa)[0]
+
+    if check == 'autograd':
+        ref, got = warp(img, t.projx, t.projy), tops_warp.warp_planned(img, plan)
+        assert torch.equal(got, ref)
+        want, = torch.autograd.grad(ref, img, g)
+        assert _rel(torch.autograd.grad(got, img, g)[0], want) <= 1e-13
+        planned = eager_grad()
+        monkeypatch.setattr(tdm, 'warp_planned', lambda im, _: warp(im, t.projx, t.projy))
+        assert _rel(planned, eager_grad()) <= 1e-13
+        assert tops_warp.LAUNCHES == {'warp_bwd': 0}  # CPU tensors: the plain version
+    elif check == 'func':
+        grad = eager_grad()
+        assert _rel(torch.func.grad(lambda aa: torch.sum(render(aa) * y))(a), grad) <= 1e-14
+        _, vjp_fn = torch.func.vjp(render, a)
+        assert _rel(vjp_fn(y)[0], grad) <= 1e-14
+        batched, = torch.func.vmap(vjp_fn)(torch.stack([y, -2 * y]))
+        assert _rel(batched[0], grad) <= 1e-14 and _rel(batched[1], -2 * grad) <= 1e-14
+        da = _t(rng.standard_normal(a.shape))
+        _, tangent = torch.func.jvp(render, (a,), (da,))
+        assert float(torch.sum(tangent * y)) == pytest.approx(float(torch.sum(grad * da)),
+                                                              rel=1e-12)
+        imgs = torch.stack([img.detach(), 3 * img.detach()])
+        pulled = torch.func.vmap(lambda im: tops_warp.warp_planned(im, plan))(imgs)
+        assert torch.equal(pulled[0], warp(imgs[0], t.projx, t.projy))
+        assert torch.equal(pulled[1], warp(imgs[1], t.projx, t.projy))
+    else:
+        inside = torch.nonzero(plan.inside.reshape(-1)).reshape(-1)
+        planted = [int(inside[len(inside) // 2]), int(inside[0])]
+        outside = torch.nonzero(~plan.inside.reshape(-1)).reshape(-1)
+        if len(outside):
+            planted.append(int(outside[0]))
+        g.reshape(-1)[planted] = float('nan')
+        want, = torch.autograd.grad(warp(img, t.projx, t.projy), img, g)
+        got, = torch.autograd.grad(tops_warp.warp_planned(img, plan), img, g)
+        assert torch.isnan(want).any()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        finite = ~torch.isnan(want)
+        assert _rel(got[finite], want[finite]) <= 1e-13
 
 
 def test_dm_render_adjoint_is_autograds_chain_when_unrotated():

@@ -118,12 +118,13 @@ def test_profiled_step_records_its_span_tree(step):
 
     bwd, backward = one('x.dm.render.bwd'), one('steps.wfc.backward')
     assert inside(bwd, backward) and inside(one('fttools.mdft.adjoint'), backward)
-    # autograd's own backward of the fold's gather: the sorted index_put
-    gather = [e.time_range for e in events if e.name.endswith('IndexBackward0')]
+    # the backward of the fold's planned warp (its node and the transpose it calls), and
+    # no sorted index_put left in the step's backward
+    planned = [e.time_range for e in events if e.name in ('_WarpBackward', '_WarpVJP')]
     puts = [e.time_range for e in events
             if e.name == 'aten::_index_put_impl_' and inside(e.time_range, backward)]
-    assert gather and puts
-    assert all(inside(r, bwd) for r in gather + puts)
+    assert len(planned) == 2 and not puts
+    assert all(inside(r, bwd) for r in planned)
 
 
 def test_spans_leave_the_step_bit_identical(step):
