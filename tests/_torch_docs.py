@@ -2,12 +2,15 @@
 
 The JAX doc (``docs/<relpath>``) runs block by block in one namespace as
 ``tests/test_docs_snippets.py`` runs it (the CPU, x64, its block limit), with
-the draws of ``jax.random.uniform`` / ``normal`` recorded; the port's
+the draws of ``jax.random.uniform`` / ``normal`` recorded; of its namespace
+only the compared results and the draws are kept, and they are read from
+their record (``_jax_refs``) where it is current.  The port's doc
 (``docs/torch/<relpath>``) runs through ``prysm_tpu_torch.docs.run`` on the
 CPU in float64 with those draws replayed into ``torch.rand`` / ``randn``.
 Both run in the test's ``tmp_path``.  A port doc that replays no draws runs
-once: ``run_pair`` reads the run that ``test_port_doc_executes`` made.  The
-docs modules give ``relpath`` module scope, so that a doc's two tests run one
+once: ``run_pair`` reads the run that ``test_port_doc_executes`` made (the
+phase-retrieval tutorial's run is 200 L-BFGS-B iterations).  The docs
+modules give ``relpath`` module scope, so that a doc's two tests run one
 after the other and one kept run waits at a time.  A result is compared by
 ``max |port - jax| / max |jax|`` (of the peak), or as named in the file's
 table.
@@ -21,6 +24,7 @@ import torch
 
 import jax
 
+from _jax_refs import jax_ref
 from prysm_tpu_torch import docs
 from prysm_tpu_torch.conf import config
 from prysm_tpu_torch.ops import noise as tnoise
@@ -82,6 +86,22 @@ def run_jax(relpath):
     return ns, recorded
 
 
+def _jax_results(relpath, jax_fns):
+    ns, recorded = run_jax(relpath)
+    return {name: jax_fns[name](ns) if name in jax_fns else docs.value(ns, name)
+            for name in docs.RESULTS[relpath]}, recorded
+
+
+def jax_results(relpath, bars):
+    """(results, draws) of the JAX doc: each name of ``docs.RESULTS[relpath]`` as its
+    namespace holds it on the host, or as its ``bars`` entry's ``jax`` function reads it
+    from the namespace; and the draws the doc made."""
+    jax_fns = {name: entry['jax'] for name, entry in bars.items() if 'jax' in entry}
+    each = {name: bars.get(name, {}).get('bar', DEFAULT_BAR) for name in docs.RESULTS[relpath]}
+    return jax_ref(relpath, _jax_results, relpath, jax_fns, bar=(each, min(each.values())),
+                   reads=(f'docs/{relpath}',))
+
+
 _PORT_RUNS = {}
 
 
@@ -105,18 +125,18 @@ def run_port(relpath, monkeypatch, tmp_path, draws=None):
     return ns
 
 
-def run_pair(relpath, monkeypatch, tmp_path):
-    """(JAX namespace, port namespace) of one doc, the JAX one run in ``tmp_path``.  The
-    port's runs there as ``run_port`` runs it with the JAX doc's draws where
-    ``docs.REPLAYED`` says; otherwise it is the kept run, handed out once, or a new run
-    where none was kept."""
+def run_pair(relpath, monkeypatch, tmp_path, bars):
+    """(JAX results, port namespace) of one doc, the JAX doc run in ``tmp_path`` where it
+    runs (``jax_results``).  The port's runs there as ``run_port`` runs it with the JAX
+    doc's draws where ``docs.REPLAYED`` says; otherwise it is the kept run, handed out
+    once, or a new run where none was kept."""
     monkeypatch.chdir(tmp_path)
-    jns, recorded = run_jax(relpath)
+    results, recorded = jax_results(relpath, bars)
     if relpath in docs.REPLAYED:
-        return jns, run_port(relpath, monkeypatch, tmp_path, docs.Draws(recorded))
+        return results, run_port(relpath, monkeypatch, tmp_path, docs.Draws(recorded))
     if relpath in _PORT_RUNS:
-        return jns, _PORT_RUNS.pop(relpath)
-    return jns, run_port(relpath, monkeypatch, tmp_path)
+        return results, _PORT_RUNS.pop(relpath)
+    return results, run_port(relpath, monkeypatch, tmp_path)
 
 
 def noise_stats(got, want):
@@ -126,7 +146,7 @@ def noise_stats(got, want):
     assert dmean <= 2e-3 and dspread <= 0.05, (dmean, dspread)
 
 
-def compare(relpath, jns, tns, bars):
+def compare(relpath, results, tns, bars):
     """Every result of ``docs.RESULTS[relpath]`` within its bar.  ``bars`` maps a name to
     a dict: ``bar`` (default DEFAULT_BAR) with ``why`` where it is looser; ``jax`` a
     function of the JAX namespace giving the value compared (default the same name
@@ -134,8 +154,7 @@ def compare(relpath, jns, tns, bars):
     for name in docs.RESULTS[relpath]:
         entry = bars.get(name, {})
         got = docs.value(tns, name)
-        want = entry['jax'](jns) if 'jax' in entry else docs.value(jns, name)
-        want = None if want is None else docs.host(want)
+        want = None if results[name] is None else docs.host(results[name])
         if 'check' in entry:
             entry['check'](got, want)
             continue

@@ -7,7 +7,9 @@ path) with bench.py's inputs: cfg3's segment coefficients from
 functions.  Bars: the aperture equal exactly; plan tensors to 1e-12
 relative; the PSF, the encircled energy, its gradient with respect to the
 (19, 3) coefficients (autograd against ``jax.grad``) and the cfg4
-intensity to 1e-9 relative.
+intensity to 1e-9 relative.  The JAX package's cfg3 run is read from its record
+(``_jax_refs``) where it is current: the aperture and coefficients, compared
+exactly, in a record of their own.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.coordinates import make_xy_grid, cart_to_polar
 from prysm_tpu.geometry import circle_sdf, antialias
 from prysm_tpu.otf import encircled_energy
@@ -59,7 +62,8 @@ def _jax_cfg3(N):
 @pytest.mark.parametrize('N', [128, 127])
 def test_cfg3_step_matches_jax(N):
     step = steps.build_cfg3_step(N, dtype=torch.float64, device='cpu')
-    jee, jpsf, jgrad, jamp, jcoefs = _jax_cfg3(N)
+    jamp, jcoefs = jax_ref('cfg3-aperture', lambda N: _jax_cfg3(N)[3:], N)
+    jee, jpsf, jgrad = jax_ref('cfg3', lambda N: _jax_cfg3(N)[:3], N, bar=1e-9)
     assert len(step.aperture.segment_ids) == 19
     np.testing.assert_array_equal(step.amp.numpy(), jamp)
     np.testing.assert_array_equal(step.coefs.numpy(), np.asarray(jcoefs))

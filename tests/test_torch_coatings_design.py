@@ -12,8 +12,10 @@ L-BFGS-B refinement and its synthesis against the JAX package's
 ``x.coatings`` on the same numbers, and its damped least squares, where the
 JAX package's active-set loop raises, held to the merit it lowers and the
 floor it keeps.  Inputs from seeded numpy generators, ``jax_enable_x64``,
-``config.precision = 64``, CPU.  The JAX package's forward evaluation of
-each design and polarization is made once a module (``_jax_forward``).
+``config.precision = 64``, CPU.  The JAX package's side of each comparison
+is read from its record (``_jax_refs``) and computed live where there is
+none; live, its forward evaluation of each design and polarization is made
+once a module (``_jax_forward``).
 
 The complex-gradient convention: a cotangent c pairs as
 dF = Re(sum(conj(c) dz)).  ``jax.grad`` returns the conjugate of that pairing
@@ -41,6 +43,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.x import coatings as jc
 from prysm_tpu.x.coatings import diff as jdiff
 
@@ -78,17 +81,22 @@ WVL = np.linspace(0.45, 0.65, 7)[:, None]
 THETA = np.asarray([0.0, 0.35])[None, :]
 
 
-def _stacks(design):
-    n, d = design
-    return tc.Stack(n, d, SUB), jc.Stack(n, d, SUB)
-
-
 @functools.cache
 def _jax_forward(design, pol):
     """The JAX package's forward evaluation of ``DESIGNS[design]`` on (WVL, THETA), made
-    once a module: the gradient and cotangent tests only read it."""
+    once a module: the gradient and cotangent references only read it."""
     n, d = DESIGNS[design]
     return jdiff.forward_eval(jc.Stack(n, d, SUB), WVL, THETA, pol)
+
+
+QUANTITIES = ('R_value', 'T_value', 'A_value', 'Esq_value')
+
+
+def _jax_gradients(design, pol, seeds):
+    fj = _jax_forward(design, pol)
+    sj = {k: jnp.asarray(v) for k, v in seeds.items()}
+    return ([getattr(fj, q) for q in QUANTITIES], jdiff.thickness_gradient(fj, **sj),
+            jdiff.index_gradient(fj, **sj))
 
 
 def _seeds(fwd_shape_n, rng):
@@ -100,8 +108,9 @@ def _seeds(fwd_shape_n, rng):
 
 
 def _pair_seeds(seeds, keys):
+    """The seeds named by ``keys``, as tensors and as numpy arrays."""
     return ({k: torch.as_tensor(v) for k, v in seeds.items() if k in keys},
-            {k: jnp.asarray(v) for k, v in seeds.items() if k in keys})
+            {k: v for k, v in seeds.items() if k in keys})
 
 
 DESIGNS = {'lossless': LOSSLESS, 'absorbing': ABSORBING}
@@ -116,11 +125,12 @@ def test_thickness_and_index_gradients_match_jax(design, pol, keys):
     mine = tc.Stack(*DESIGNS[design], SUB)
     seeds = _seeds(len(mine), np.random.default_rng(len(keys)))
     st, sj = _pair_seeds(seeds, SEED_SETS[keys])
-    ft, fj = tdiff.forward_eval(mine, WVL, THETA, pol), _jax_forward(design, pol)
-    for q in ('R_value', 'T_value', 'A_value', 'Esq_value'):
-        _close(getattr(ft, q), getattr(fj, q), floor=1.0)
-    _close(tdiff.thickness_gradient(ft, **st), jdiff.thickness_gradient(fj, **sj), floor=1.0)
-    _close(tdiff.index_gradient(ft, **st), jdiff.index_gradient(fj, **sj), floor=1.0)
+    ft = tdiff.forward_eval(mine, WVL, THETA, pol)
+    values, g, gi = jax_ref('gradients', _jax_gradients, design, pol, sj, bar=BAR)
+    for q, want in zip(QUANTITIES, values):
+        _close(getattr(ft, q), want, floor=1.0)
+    _close(tdiff.thickness_gradient(ft, **st), g, floor=1.0)
+    _close(tdiff.index_gradient(ft, **st), gi, floor=1.0)
 
 
 def _seeded_value(stack, pol, seeds):
@@ -168,8 +178,9 @@ def test_assembly_cotangent_pairs_with_dM_and_matches_conjugated_jax(design, pol
     dR, dT = rng.standard_normal((7, 2)), rng.standard_normal((7, 2))
     ft = tdiff.forward_eval(mine, WVL, THETA, pol)
     c_M = tdiff.assembly_cotangent(ft, dR=torch.as_tensor(dR), dT=torch.as_tensor(dT))
-    _close(c_M, jdiff.assembly_cotangent(_jax_forward(design, pol), dR=jnp.asarray(dR),
-                                         dT=jnp.asarray(dT)))
+    _close(c_M, jax_ref('assembly', lambda design, pol, dR, dT: jdiff.assembly_cotangent(
+        _jax_forward(design, pol), dR=jnp.asarray(dR), dT=jnp.asarray(dT)),
+        design, pol, dR, dT, bar=BAR))
     eta0, eta_sub = ft.eta0, ft.eta_sub
 
     def F(M):
@@ -199,7 +210,9 @@ def test_layer_cotangents_pair_with_d_beta_eta(design, pol):
     st, sj = _pair_seeds(seeds, SEED_SETS['all'])
     ft = tdiff.forward_eval(mine, WVL, THETA, pol)
     cb, ce = tdiff.layer_cotangents(ft, **st)
-    cbj, cej = jdiff.layer_cotangents(_jax_forward(design, pol), **sj)
+    cbj, cej = jax_ref('layers', lambda design, pol, sj: jdiff.layer_cotangents(
+        _jax_forward(design, pol), **{k: jnp.asarray(v) for k, v in sj.items()}),
+        design, pol, sj, bar=BAR)
     for a, b in zip(cb + ce, cbj + cej):
         _close(a, b)
     # pin the convention: F as a function of the (beta, eta) leaves, along complex directions
@@ -226,7 +239,8 @@ def test_char_matrix_vjp_matches_jax_and_autograd():
     eta = rng.uniform(1.2, 2.3, 6) + 1j * rng.uniform(0, 0.05, 6)
     M_bar = rng.standard_normal((6, 2, 2)) + 1j * rng.standard_normal((6, 2, 2))
     got = tdiff.char_matrix_vjp(torch.as_tensor(beta), torch.as_tensor(eta), torch.as_tensor(M_bar))
-    want = jdiff.char_matrix_vjp(jnp.asarray(beta), jnp.asarray(eta), jnp.asarray(M_bar))
+    want = jax_ref('char-vjp', lambda *a: jdiff.char_matrix_vjp(*map(jnp.asarray, a)),
+                   beta, eta, M_bar, bar=BAR)
     for a, b in zip(got, want):
         _close(a, b)
     # the analytic pullback equals autograd's for the pairing Re(sum(conj(M_bar) M))
@@ -258,33 +272,51 @@ def _terms(m):
     }
 
 
+def _jax_term(term, design, assembly_capable):
+    """A term's value, residuals, value and gradient, and (where the port's term assembles)
+    assembly seeds, as the JAX package computes them."""
+    tj, ref = _terms(jc)[term], jc.Stack(*DESIGNS[design], SUB)
+    vj, gj = tj.value_and_grad(ref)
+    seeds = [c for _, c in tj.assembly_seeds(ref)] if assembly_capable else None
+    return float(tj.value(ref)), tj.residuals(ref), float(vj), gj, seeds
+
+
 @pytest.mark.parametrize('design', list(DESIGNS))
 @pytest.mark.parametrize('term', TERMS)
 def test_merit_terms_match_jax(term, design):
-    mine, ref = _stacks(DESIGNS[design])
-    tt, tj = _terms(tc)[term], _terms(jc)[term]
-    assert tt.value(mine) == pytest.approx(tj.value(ref), rel=BAR, abs=BAR)
-    _close(tt.residuals(mine), tj.residuals(ref), floor=1.0)
+    mine = tc.Stack(*DESIGNS[design], SUB)
+    tt = _terms(tc)[term]
+    value, residuals, vj, gj, seeds = jax_ref('term', _jax_term, term, design,
+                                              tt.assembly_capable, bar=BAR)
+    assert tt.value(mine) == pytest.approx(value, rel=BAR, abs=BAR)
+    _close(tt.residuals(mine), residuals, floor=1.0)
     v, g = tt.value_and_grad(mine)
-    vj, gj = tj.value_and_grad(ref)
     assert v == pytest.approx(vj, rel=BAR, abs=BAR)
     _close(g, gj, floor=1.0)
     if tt.assembly_capable:
         (_, c_M), = tt.assembly_seeds(mine)
-        want = [np.asarray(c) for _, c in tj.assembly_seeds(ref)]
+        want = seeds
         # the port's one evaluation carries the polarizations on a trailing axis
         _close(torch.movedim(c_M, -3, 0).reshape(len(want), *want[0].shape), np.stack(want))
 
 
+def _jax_merit():
+    """The merit function of every term on the absorbing design: value, residuals, and
+    value and gradient in thickness and in index, as the JAX package computes them."""
+    mj, ref = jc.MeritFunction(list(_terms(jc).values())), jc.Stack(*ABSORBING, SUB)
+    grads = [mj.value_and_grad(ref, grad_fn=fn) for fn in (jc.thickness_gradient,
+                                                            jc.index_gradient)]
+    return float(mj.value(ref)), mj.residuals(ref), [(float(v), g) for v, g in grads]
+
+
 def test_merit_function_and_validation():
-    mine, ref = _stacks(ABSORBING)
-    mt, mj = tc.MeritFunction(list(_terms(tc).values())), jc.MeritFunction(list(_terms(jc).values()))
-    assert mt.value(mine) == pytest.approx(mj.value(ref), rel=BAR)
-    _close(mt.residuals(mine), mj.residuals(ref))
-    for fn_t, fn_j in ((tc.thickness_gradient, jc.thickness_gradient),
-                       (tc.index_gradient, jc.index_gradient)):
+    mine = tc.Stack(*ABSORBING, SUB)
+    mt = tc.MeritFunction(list(_terms(tc).values()))
+    value, residuals, grads = jax_ref('merit', _jax_merit, bar=BAR)
+    assert mt.value(mine) == pytest.approx(value, rel=BAR)
+    _close(mt.residuals(mine), residuals)
+    for fn_t, (vj, gj) in zip((tc.thickness_gradient, tc.index_gradient), grads):
         v, g = mt.value_and_grad(mine, grad_fn=fn_t)
-        vj, gj = mj.value_and_grad(ref, grad_fn=fn_j)
         assert v == pytest.approx(vj, rel=BAR)
         _close(g, gj)
     assert tc.as_merit(mt) is mt and len(tc.as_merit(_terms(tc)['R']).terms) == 1
@@ -298,21 +330,29 @@ def test_merit_function_and_validation():
         _terms(tc)['A'].assembly_seeds(mine)
 
 
+def _jax_problem(variables, x):
+    """The JAX package's problem on the lossless design: x0, and f, g and the residuals
+    at ``x``."""
+    mj = _terms(jc)
+    pj = jc.CoatingProblem(jc.Stack(*LOSSLESS, SUB), [mj['R'], mj['T-p']], variables=variables,
+                           variable_layers=[0, 2, 3])
+    fj, gj = pj.fg(jnp.asarray(x))
+    return pj.x0(), float(fj), gj, pj.residuals(x)
+
+
 @pytest.mark.parametrize('variables', ['thickness', 'index'])
 def test_coating_problem_matches_jax(variables):
     n, d = LOSSLESS
-    mt, mj = _terms(tc), _terms(jc)
+    mt = _terms(tc)
     pt = tc.CoatingProblem(tc.Stack(n, d, SUB), [mt['R'], mt['T-p']], variables=variables,
                            variable_layers=[0, 2, 3])
-    pj = jc.CoatingProblem(jc.Stack(n, d, SUB), [mj['R'], mj['T-p']], variables=variables,
-                           variable_layers=[0, 2, 3])
-    _close(pt.x0(), pj.x0())
     x = _host(pt.x0()) * 1.03
+    x0, fj, gj, residuals = jax_ref('problem', _jax_problem, variables, x, bar=BAR)
+    _close(pt.x0(), x0)
     ft, gt = pt.fg(torch.as_tensor(x))
-    fj, gj = pj.fg(jnp.asarray(x))
     assert ft == pytest.approx(fj, rel=BAR)
     _close(gt, gj)
-    _close(pt.residuals(x), pj.residuals(x))
+    _close(pt.residuals(x), residuals)
     assert pt.variable_layers == [0, 2, 3]
     with pytest.raises(ValueError):
         tc.CoatingProblem(tc.Stack(n, d, SUB), mt['R'], variables='other')
@@ -337,6 +377,13 @@ def _edge_start():
     return n, 0.49 / (4 * np.asarray(n)) * (1 + 0.05 * rng.standard_normal(len(n)))
 
 
+def _jax_lbfgsb(stack, terms, kw):
+    """(nit, success, each iteration's x_next, merit) of the JAX package's refinement."""
+    ref = jc.refine(stack, terms, **kw)
+    return (ref.nit, ref.success, [b.x_next for b in ref.optimizer_result.records],
+            float(ref.merit))
+
+
 @pytest.mark.parametrize('kwargs', [{}, {'min_thickness': 0.05}, {'bounds': (0.04, 0.09)},
                                     {'variables': 'index', 'maxiter': 15, 'bounds': (1.3, 2.5)}],
                          ids=['free', 'floor', 'box', 'index'])
@@ -344,12 +391,22 @@ def test_refine_lbfgsb_matches_jax(kwargs):
     n, d = _edge_start()
     kw = dict(dict(maxiter=10), **kwargs)
     mine = tc.refine(tc.Stack(n, d, SUB), _edge(tc), **kw)
-    ref = jc.refine(jc.Stack(n, d, SUB), _edge(jc), **kw)
-    assert (mine.nit, mine.success) == (ref.nit, ref.success)
-    for a, b in zip(mine.optimizer_result.records, ref.optimizer_result.records):
-        _close(a.x_next, b.x_next, ITERATE_BAR)
-    assert mine.merit == pytest.approx(ref.merit, rel=ITERATE_BAR)
+    nit, success, x_next, merit = jax_ref(
+        'refine', lambda n, d, kw: _jax_lbfgsb(jc.Stack(n, d, SUB), _edge(jc), kw), n, d, kw,
+        bar=ITERATE_BAR)
+    assert (mine.nit, mine.success) == (nit, success)
+    for a, b in zip(mine.optimizer_result.records, x_next):
+        _close(a.x_next, b, ITERATE_BAR)
+    assert mine.merit == pytest.approx(merit, rel=ITERATE_BAR)
     assert 'CoatingResult' in repr(mine)
+
+
+def _jax_lm(design, n, d, kw):
+    """(nit, nfev, each iteration's x, merit) of the JAX package's damped least squares."""
+    merit = _edge(jc) if design == 'edge' else _ar(jc)
+    ref = jc.refine(jc.Stack(n, d, SUB), merit, method='lm', maxiter=6, **kw)
+    res = ref.optimizer_result
+    return res.nit, res.nfev, [h['x'] for h in res.history], float(ref.merit)
 
 
 @pytest.mark.parametrize('design', ['edge', 'ar'])
@@ -358,17 +415,17 @@ def test_refine_lm_matches_jax(design):
     filter at damping 1e-2; at the default 1e-6 it raises, see the test below)."""
     if design == 'edge':
         n, d = _edge_start()
-        merit_t, merit_j, kw = _edge(tc), _edge(jc), {'damping': 1e-2}
+        merit_t, kw = _edge(tc), {'damping': 1e-2}
     else:
         n, d = [1.38, 2.05, 1.6], [0.1, 0.05, 0.08]
-        merit_t, merit_j, kw = _ar(tc), _ar(jc), {}
+        merit_t, kw = _ar(tc), {}
     mine = tc.refine(tc.Stack(n, d, SUB), merit_t, method='lm', maxiter=6, **kw)
-    ref = jc.refine(jc.Stack(n, d, SUB), merit_j, method='lm', maxiter=6, **kw)
-    res_t, res_j = mine.optimizer_result, ref.optimizer_result
-    assert (res_t.nit, res_t.nfev) == (res_j.nit, res_j.nfev)
-    for a, b in zip(res_t.history, res_j.history):
-        _close(a['x'], b['x'], DLS_BAR)
-    assert mine.merit == pytest.approx(ref.merit, rel=DLS_BAR)
+    nit, nfev, xs, merit = jax_ref('refine-lm', _jax_lm, design, n, d, kw, bar=DLS_BAR)
+    res_t = mine.optimizer_result
+    assert (res_t.nit, res_t.nfev) == (nit, nfev)
+    for a, b in zip(res_t.history, xs):
+        _close(a['x'], b, DLS_BAR)
+    assert mine.merit == pytest.approx(merit, rel=DLS_BAR)
     with pytest.raises(ValueError):
         tc.refine(tc.Stack(n, d, SUB), merit_t, method='other')
 
@@ -383,9 +440,9 @@ def test_refine_lm_with_a_floor_runs_where_the_jax_package_raises():
     merit = _edge(tc, np.linspace(0.44, 0.54, 8), np.linspace(0.6, 0.9, 24))
     start = tc.MeritFunction(merit).value(tc.Stack(n, d, SUB))
     with pytest.raises(ValueError, match='shape mismatch'):
-        jc.refine(jc.Stack(n, d, SUB), _edge(jc, np.linspace(0.44, 0.54, 8),
-                                             np.linspace(0.6, 0.9, 24)),
-                  method='lm', maxiter=10, min_thickness=0.005)
+        jax_ref('refine-lm-floor', lambda n, d: jc.refine(
+            jc.Stack(n, d, SUB), _edge(jc, np.linspace(0.44, 0.54, 8), np.linspace(0.6, 0.9, 24)),
+            method='lm', maxiter=10, min_thickness=0.005), n, d)
     res = tc.refine(tc.Stack(n, d, SUB), merit, method='lm', maxiter=10, min_thickness=0.005)
     assert res.merit < start and bool((res.stack.thicknesses >= 0.005 - 1e-12).all())
 
@@ -401,10 +458,12 @@ def _ar(m, npts=7):
 @pytest.mark.parametrize('material', [1.38, 2.05, 1.9 + 0.01j])
 @pytest.mark.parametrize('design', list(DESIGNS))
 def test_needle_function_matches_jax_and_differences(design, material):
-    mine, ref = _stacks(DESIGNS[design])
+    mine = tc.Stack(*DESIGNS[design], SUB)
     z = np.linspace(0.0, float(np.sum(DESIGNS[design][1])), 13)
     P = tc.needle_function(mine, _ar(tc), material, z)
-    _close(P, jc.needle_function(ref, _ar(jc), material, jnp.asarray(z)))
+    _close(P, jax_ref('needle', lambda design, material, z: jc.needle_function(
+        jc.Stack(*DESIGNS[design], SUB), _ar(jc), material, jnp.asarray(z)),
+        design, material, z, bar=BAR))
     if isinstance(material, complex) or design == 'absorbing':
         return
     base, dn = _ar(tc).value(mine), 1e-7
@@ -413,21 +472,39 @@ def test_needle_function_matches_jax_and_differences(design, material):
         assert float(P[k]) == pytest.approx(fd, rel=3e-3, abs=1e-6)
 
 
+def _jax_needle_helpers():
+    """The JAX package's insert_needle on the lossless design, and its clean-up of a stack
+    with a thin layer and a repeated index, keeping nothing and then index 1: each as
+    (indices, thicknesses)."""
+    grown, at = jc.insert_needle(jc.Stack(*LOSSLESS, SUB), 0.21, 1.9, thickness=2e-3,
+                                 return_index=True)
+    cleaned = [jc.cleanup(jc.Stack([1.4, 2.0, 1.4, 1.4, 2.0], [0.10, 5e-4, 0.15, 0.05, 0.02],
+                                   SUB), keep_indices=keep) for keep in (None, [1])]
+    return at, [(s.indices, s.thicknesses) for s in [grown] + cleaned]
+
+
 def test_needle_helpers_match_jax():
-    mine, ref = _stacks(LOSSLESS)
+    mine = tc.Stack(*LOSSLESS, SUB)
+    at_j, ((indices, thicknesses), *cleaned_j) = jax_ref('needle-helpers', _jax_needle_helpers,
+                                                          bar=BAR)
     grown_t, at_t = tc.insert_needle(mine, 0.21, 1.9, thickness=2e-3, return_index=True)
-    grown_j, at_j = jc.insert_needle(ref, 0.21, 1.9, thickness=2e-3, return_index=True)
-    assert at_t == at_j and grown_t.indices == grown_j.indices
-    _close(grown_t.thicknesses, grown_j.thicknesses)
+    assert at_t == at_j and grown_t.indices == indices
+    _close(grown_t.thicknesses, thicknesses)
     with pytest.raises(ValueError):
         tc.insert_needle(mine, 5.0, 1.9)
     stack = tc.Stack([1.4, 2.0, 1.4, 1.4, 2.0], [0.10, 5e-4, 0.15, 0.05, 0.02], SUB)
-    for keep in (None, [1]):
+    for keep, (indices, thicknesses) in zip((None, [1]), cleaned_j):
         cleaned = tc.cleanup(stack, keep_indices=keep)
-        want = jc.cleanup(jc.Stack([1.4, 2.0, 1.4, 1.4, 2.0], [0.10, 5e-4, 0.15, 0.05, 0.02],
-                                   SUB), keep_indices=keep)
-        assert cleaned.indices == want.indices
-        _close(cleaned.thicknesses, want.thicknesses)
+        assert cleaned.indices == indices
+        _close(cleaned.thicknesses, thicknesses)
+
+
+def _jax_synthesis(stack, terms, materials, kw):
+    """The JAX package's needle synthesis: its counts, success, layers and merit."""
+    ref = jc.synthesize(stack, terms, materials, **kw)
+    return {'n_layers': ref.n_layers, 'iterations': ref.iterations, 'success': ref.success,
+            'indices': ref.stack.indices, 'thicknesses': ref.stack.thicknesses,
+            'merit': float(ref.merit)}
 
 
 @pytest.mark.parametrize('materials', [[1.38, 2.05], [2.05, 1.38, 1.7]], ids=['two', 'three'])
@@ -436,12 +513,14 @@ def test_synthesize_matches_jax(materials):
     round refines 10 L-BFGS-B iterations, and rounding grows through the rounds)."""
     kw = dict(z_samples=40, max_iters=3, max_layers=8, refine_kwargs={'maxiter': 10})
     mine = tc.synthesize(tc.Stack([1.38, 2.05], [0.10, 0.10], SUB), _ar(tc), materials, **kw)
-    ref = jc.synthesize(jc.Stack([1.38, 2.05], [0.10, 0.10], SUB), _ar(jc), materials, **kw)
-    assert (mine.n_layers, mine.iterations, mine.success) == (ref.n_layers, ref.iterations,
-                                                              ref.success)
-    assert mine.stack.indices == ref.stack.indices
-    _close(mine.stack.thicknesses, ref.stack.thicknesses, 1e-6)
-    assert mine.merit == pytest.approx(ref.merit, rel=1e-6)
+    ref = jax_ref('synthesize', lambda materials, kw: _jax_synthesis(
+        jc.Stack([1.38, 2.05], [0.10, 0.10], SUB), _ar(jc), materials, kw), materials, kw,
+        bar=1e-6)
+    assert (mine.n_layers, mine.iterations, mine.success) == (ref['n_layers'],
+                                                              ref['iterations'], ref['success'])
+    assert mine.stack.indices == ref['indices']
+    _close(mine.stack.thicknesses, ref['thicknesses'], 1e-6)
+    assert mine.merit == pytest.approx(ref['merit'], rel=1e-6)
     assert mine.merit < _ar(tc).value(tc.Stack([1.38, 2.05], [0.10, 0.10], SUB)) / 5
     with pytest.raises(ValueError):
         tc.synthesize(tc.Stack([1.38], [0.1], SUB), _ar(tc), [])
@@ -546,20 +625,26 @@ def path_design():
     return steps.build_coating_design(**SMALL, dtype=torch.float64, device='cpu')
 
 
-def _jax_terms(design, needle=False):
-    """The design's merit terms, built by the JAX package on the port's grids."""
+def _design_data(design, needle=False):
+    """The design's merit terms and start as plain data: (class name, wavelengths, angles,
+    polarization, target) a term, and (indices, thicknesses, substrate, ambient)."""
     terms = design.needle_merit if needle else design.merit
-    out = []
-    for term in terms:
-        cls = getattr(jc, type(term).__name__)
-        out.append(cls(np.asarray(term.wvl), np.asarray(term.theta), pol=term.pol,
-                       target=float(term.target)))
-    return out
+    stack = design.needle_start if needle else design.stack0
+    return ([(type(t).__name__, np.asarray(t.wvl), np.asarray(t.theta), t.pol, float(t.target))
+             for t in terms],
+            (stack.indices, _host(stack.thicknesses), stack.substrate_index, stack.ambient_index))
 
 
-def _jax_stack(stack):
-    return jc.Stack(stack.indices, _host(stack.thicknesses), stack.substrate_index,
-                    stack.ambient_index)
+def _jax_design(terms, stack):
+    """The design's start and merit terms, built by the JAX package on the port's grids."""
+    return jc.Stack(*stack), [getattr(jc, cls)(wvl, theta, pol=pol, target=target)
+                              for cls, wvl, theta, pol, target in terms]
+
+
+def _jax_start(terms, stack):
+    stack, terms = _jax_design(terms, stack)
+    fj, gj = jc.MeritFunction(terms).value_and_grad(stack)
+    return float(fj), gj
 
 
 def test_design_start_and_merit(path_design):
@@ -569,10 +654,9 @@ def test_design_start_and_merit(path_design):
     rng = np.random.default_rng(steps.COATING_SEED)
     np.testing.assert_array_equal(_host(path_design.stack0.thicknesses),
                                   quarter * (1 + steps.COATING_SPREAD * rng.standard_normal(9)))
-    ref = jc.MeritFunction(_jax_terms(path_design))
     mine = path_design.problem()
     f, g = mine.fg(mine.x0())
-    fj, gj = ref.value_and_grad(_jax_stack(path_design.stack0))
+    fj, gj = jax_ref('design-start', _jax_start, *_design_data(path_design), bar=BAR)
     assert f == pytest.approx(fj, rel=BAR)
     assert _rel(g, gj) <= BAR
 
@@ -580,23 +664,27 @@ def test_design_start_and_merit(path_design):
 def test_design_refine_lbfgsb_matches_jax(path_design):
     """The path's bounded L-BFGS-B refinement, its first 20 iterations against the JAX package's."""
     mine = path_design.refine('lbfgsb', 20)
-    ref = jc.refine(_jax_stack(path_design.stack0), _jax_terms(path_design), method='lbfgsb',
-                    maxiter=20, min_thickness=steps.COATING_MIN_THICKNESS)
-    recs_t, recs_j = mine.optimizer_result.records, ref.optimizer_result.records
-    assert len(recs_t) == len(recs_j) == 20
-    for a, b in zip(recs_t, recs_j):
-        assert _rel(a.x_next, b.x_next) <= ITERATE_BAR
+    _, _, x_next, merit = jax_ref(
+        'design-refine', lambda terms, stack, floor: _jax_lbfgsb(
+            *_jax_design(terms, stack),
+            dict(method='lbfgsb', maxiter=20, min_thickness=floor)),
+        *_design_data(path_design), steps.COATING_MIN_THICKNESS, bar=ITERATE_BAR)
+    recs_t = mine.optimizer_result.records
+    assert len(recs_t) == len(x_next) == 20
+    for a, b in zip(recs_t, x_next):
+        assert _rel(a.x_next, b) <= ITERATE_BAR
     start = sum(t.value(path_design.stack0) for t in path_design.merit)
     assert mine.merit < 0.6 * start
-    assert mine.merit == pytest.approx(ref.merit, rel=ITERATE_BAR)
+    assert mine.merit == pytest.approx(merit, rel=ITERATE_BAR)
     assert mine.x.dtype == torch.float64
 
 
 def test_design_refine_lm_lowers_the_merit_where_jax_raises(path_design):
     start = sum(t.value(path_design.stack0) for t in path_design.merit)
     with pytest.raises(ValueError, match='shape mismatch'):
-        jc.refine(_jax_stack(path_design.stack0), _jax_terms(path_design), method='lm', maxiter=10,
-                  min_thickness=steps.COATING_MIN_THICKNESS)
+        jax_ref('design-refine-lm', lambda terms, stack, floor: jc.refine(
+            *_jax_design(terms, stack), method='lm', maxiter=10, min_thickness=floor),
+            *_design_data(path_design), steps.COATING_MIN_THICKNESS)
     res = path_design.refine('lm', 10)
     assert res.merit < start
     assert float(res.stack.thicknesses.min()) >= steps.COATING_MIN_THICKNESS - 1e-12
@@ -606,13 +694,14 @@ def test_design_refine_lm_lowers_the_merit_where_jax_raises(path_design):
 
 def test_design_synthesis_matches_jax(path_design):
     mine = path_design.synthesize()
-    ref = jc.synthesize(_jax_stack(path_design.needle_start),
-                        _jax_terms(path_design, needle=True), steps.NEEDLE_MATERIALS,
-                        **path_design.needle)
-    assert (mine.n_layers, mine.iterations) == (ref.n_layers, ref.iterations)
-    assert mine.stack.indices == ref.stack.indices
-    assert _rel(mine.stack.thicknesses, ref.stack.thicknesses) <= SYNTH_BAR
-    assert mine.merit == pytest.approx(ref.merit, rel=SYNTH_BAR)
+    ref = jax_ref('design-synthesis', lambda terms, stack, materials, kw: _jax_synthesis(
+        *_jax_design(terms, stack), materials, kw),
+        *_design_data(path_design, needle=True), steps.NEEDLE_MATERIALS, path_design.needle,
+        bar=SYNTH_BAR)
+    assert (mine.n_layers, mine.iterations) == (ref['n_layers'], ref['iterations'])
+    assert mine.stack.indices == ref['indices']
+    assert _rel(mine.stack.thicknesses, ref['thicknesses']) <= SYNTH_BAR
+    assert mine.merit == pytest.approx(ref['merit'], rel=SYNTH_BAR)
     assert mine.n_layers > 2
 
 

@@ -11,7 +11,8 @@ sensitivity; the rugate profiles and Fourier synthesis;
 ``interop.stack_from_numpy``.  Inputs from seeded numpy generators,
 ``jax_enable_x64``, ``config.precision = 64``, CPU.  Bar: closed forms
 <= 1e-12 relative (of each output's peak; of 1 for R, T, A and the fields,
-fractions of the incident power and field).
+fractions of the incident power and field).  The JAX package's side of the
+slow comparisons is read from its record (``_jax_refs``) where it is current.
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.x import coatings as jc
 from prysm_tpu.x.coatings import monitoring as jmon, rugate as jru
 
@@ -85,29 +87,43 @@ def _args(grid):
 @pytest.mark.parametrize('grid', list(GRIDS))
 @pytest.mark.parametrize('design', DESIGNS)
 def test_rt_rta_fields_match_jax(design, grid, pol):
-    mine, ref = _pair(design)
-    ta, ja = _args(grid)
-    for got, want in zip(tc.stack_rt(mine, *ta, pol), jc.stack_rt(ref, *ja, pol)):
+    mine, _ = _pair(design)
+    ta, _ = _args(grid)
+
+    def jax_side(design, grid, pol):
+        _, ref = _pair(design)
+        _, ja = _args(grid)
+        return (jc.stack_rt(ref, *ja, pol), jc.RTA(ref, *ja, pol),
+                jc.internal_fields(ref, *ja, pol))
+
+    rt, rta, fields = jax_ref('rt-rta-fields', jax_side, design, grid, pol, bar=BAR)
+    for got, want in zip(tc.stack_rt(mine, *ta, pol), rt):
         _close(got, want)
-    for got, want in zip(tc.RTA(mine, *ta, pol), jc.RTA(ref, *ja, pol)):
+    for got, want in zip(tc.RTA(mine, *ta, pol), rta):
         _close(got, want, floor=1.0)
-    for got, want in zip(tc.internal_fields(mine, *ta, pol), jc.internal_fields(ref, *ja, pol)):
+    for got, want in zip(tc.internal_fields(mine, *ta, pol), fields):
         _close(got, want, floor=1.0)
 
 
 @pytest.mark.parametrize('pol', ['s', 'p'])
 @pytest.mark.parametrize('design', DESIGNS)
 def test_matrices_and_products_match_jax(design, pol):
-    mine, ref = _pair(design)
-    ta, ja = _args('oblique-spectrum')
+    mine, _ = _pair(design)
+    ta, _ = _args('oblique-spectrum')
+
+    def jax_side(design, pol):
+        _, ref = _pair(design)
+        _, ja = _args('oblique-spectrum')
+        m_j = jc.stack_characteristic_matrices(ref, *ja, pol)
+        return m_j, jc.forward_products(m_j), jc.backward_products(m_j)
+
+    m_j, *products = jax_ref('matrices', jax_side, design, pol, bar=BAR)
     m_t = tc.stack_characteristic_matrices(mine, *ta, pol)
-    m_j = jc.stack_characteristic_matrices(ref, *ja, pol)
     assert len(m_t) == len(m_j)
     for a, b in zip(m_t, m_j):
         _close(a, b)
-    for fn_t, fn_j in ((tc.forward_products, jc.forward_products),
-                       (tc.backward_products, jc.backward_products)):
-        got, want = fn_t(m_t), fn_j(m_j)
+    for fn_t, want in zip((tc.forward_products, tc.backward_products), products):
+        got = fn_t(m_t)
         assert len(got) == len(want) == len(m_t) + 1
         for a, b in zip(got, want):
             _close(torch.broadcast_to(a, np.broadcast_shapes(a.shape, np.shape(b))),
@@ -213,40 +229,58 @@ def test_interop_stack_from_numpy():
 MON = (0.55, 0.0, 's')
 
 
+def _jax_monitoring(mode):
+    """Each layer's trace, turning points and level cut, and the cut-off levels."""
+    _, ref = _pair('quarter-wave-9')
+    traces = []
+    for layer in (0, 4, 8):
+        d_j, s_j = jmon.monitoring_trace(ref, layer, 0.55, mode=mode, n_points=60, pol='p',
+                                         theta=0.2)
+        traces.append((d_j, s_j, jmon.turning_points(d_j, s_j),
+                       jmon.level_cut(d_j, s_j, float(s_j[30]))))
+    return traces, jmon.cutoff_levels(ref, 0.55, mode=mode)
+
+
 @pytest.mark.parametrize('mode', ['R', 'T'])
 def test_monitoring_traces_and_levels_match_jax(mode):
-    mine, ref = _pair('quarter-wave-9')
-    for layer in (0, 4, 8):
+    mine, _ = _pair('quarter-wave-9')
+    traces, cutoffs = jax_ref('monitoring', _jax_monitoring, mode, bar=BAR)
+    for layer, (d_j, s_j, turning_j, cut_j) in zip((0, 4, 8), traces):
         d_t, s_t = tmon.monitoring_trace(mine, layer, 0.55, mode=mode, n_points=60, pol='p',
-                                         theta=0.2)
-        d_j, s_j = jmon.monitoring_trace(ref, layer, 0.55, mode=mode, n_points=60, pol='p',
                                          theta=0.2)
         _close(d_t, d_j)
         _close(s_t, s_j)
-        np.testing.assert_allclose(tmon.turning_points(d_t, s_t),
-                                   jmon.turning_points(d_j, s_j), rtol=BAR)
-        assert tmon.level_cut(d_t, s_t, float(s_j[30])) == pytest.approx(
-            jmon.level_cut(d_j, s_j, float(s_j[30])), rel=BAR)
-    _close(tmon.cutoff_levels(mine, 0.55, mode=mode), jmon.cutoff_levels(ref, 0.55, mode=mode))
+        np.testing.assert_allclose(tmon.turning_points(d_t, s_t), turning_j, rtol=BAR)
+        assert tmon.level_cut(d_t, s_t, float(s_j[30])) == pytest.approx(cut_j, rel=BAR)
+    _close(tmon.cutoff_levels(mine, 0.55, mode=mode), cutoffs)
+
+
+def _jax_monitor_runs(strategy, key, errors, design):
+    """The simulated run's thicknesses, the error sensitivity, the chosen wavelength and
+    its scores."""
+    _, ref = _pair('quarter-wave-9')
+    run_j = jmon.simulate_run(ref, 0.55, strategy=strategy, n_points=200, **{key: errors})
+    return (run_j.thicknesses,
+            jmon.monitoring_error_sensitivity(ref, 0.55, design, strategy=strategy,
+                                              n_points=200),
+            *jmon.choose_monitor_wavelength(ref, [0.5, 0.6], design, strategy=strategy,
+                                            n_points=200))
 
 
 @pytest.mark.parametrize('strategy', ['level', 'turning'])
 def test_simulated_runs_and_sensitivity_match_jax(strategy):
     n, d = _design('quarter-wave-9')
-    mine, ref = _pair('quarter-wave-9')
+    mine, _ = _pair('quarter-wave-9')
     errors = np.random.default_rng(4).normal(0, 1e-3, len(n))
     key = 'thickness_errors' if strategy == 'turning' else 'signal_errors'
-    run_t = tmon.simulate_run(mine, 0.55, strategy=strategy, n_points=200, **{key: errors})
-    run_j = jmon.simulate_run(ref, 0.55, strategy=strategy, n_points=200, **{key: errors})
-    _close(run_t.thicknesses, run_j.thicknesses, 1e-10)
     design = np.asarray([0.5, 0.55, 0.6])
+    thicknesses, sensitivity, best_j, scores_j = jax_ref(
+        'monitor-runs', _jax_monitor_runs, strategy, key, errors, design, bar=1e-10)
+    run_t = tmon.simulate_run(mine, 0.55, strategy=strategy, n_points=200, **{key: errors})
+    _close(run_t.thicknesses, thicknesses, 1e-10)
     _close(tmon.monitoring_error_sensitivity(mine, 0.55, design, strategy=strategy,
-                                             n_points=200),
-           jmon.monitoring_error_sensitivity(ref, 0.55, design, strategy=strategy,
-                                             n_points=200), 1e-8)
+                                             n_points=200), sensitivity, 1e-8)
     best_t, scores_t = tmon.choose_monitor_wavelength(mine, [0.5, 0.6], design,
-                                                      strategy=strategy, n_points=200)
-    best_j, scores_j = jmon.choose_monitor_wavelength(ref, [0.5, 0.6], design,
                                                       strategy=strategy, n_points=200)
     assert best_t == best_j
     _close(scores_t, scores_j, 1e-8)

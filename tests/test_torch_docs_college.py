@@ -60,5 +60,5 @@ def test_port_doc_executes(relpath, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize('relpath', DOCS, scope='module')
 def test_port_doc_matches_jax(relpath, monkeypatch, tmp_path):
-    jns, tns = td.run_pair(relpath, monkeypatch, tmp_path)
-    td.compare(relpath, jns, tns, BARS.get(relpath, {}))
+    results, tns = td.run_pair(relpath, monkeypatch, tmp_path, BARS.get(relpath, {}))
+    td.compare(relpath, results, tns, BARS.get(relpath, {}))

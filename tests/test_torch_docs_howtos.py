@@ -20,16 +20,13 @@ DOCS = ['how-tos/telescope-apertures.md', 'how-tos/radiometry.md', 'how-tos/opti
         'how-tos/advanced-interferogram-processing.md', 'explanation/deformable-mirrors.md',
         'explanation/segmented-systems.md', 'explanation/ins-and-outs-of-polynomials.md']
 
-_DM = {}
-
-
 def _jax_dm(name):
     """The deformable-mirror page's results as the JAX package computes them from the
     page's influence function in float64 (the JAX page rounds it to float32, and its DM
     then computes in float32 under x64 too; the port's page builds it in the working
-    dtype)."""
+    dtype), made once a namespace."""
     def of(ns):
-        if not _DM:
+        if '_jax_dm' not in ns:
             import jax
             import jax.numpy as jnp
             from prysm_tpu.x.dm import DM
@@ -44,8 +41,8 @@ def _jax_dm(name):
             a = acts
             for _ in range(20):
                 a = a - 1e-3 * jax.grad(loss)(a)
-            _DM.update(sfe=render(acts), g=jax.grad(loss)(acts), a=a)
-        return _DM[name]
+            ns['_jax_dm'] = dict(sfe=render(acts), g=jax.grad(loss)(acts), a=a)
+        return ns['_jax_dm'][name]
     return of
 
 
@@ -63,5 +60,5 @@ def test_port_doc_executes(relpath, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize('relpath', DOCS, scope='module')
 def test_port_doc_matches_jax(relpath, monkeypatch, tmp_path):
-    jns, tns = td.run_pair(relpath, monkeypatch, tmp_path)
-    td.compare(relpath, jns, tns, BARS.get(relpath, {}))
+    results, tns = td.run_pair(relpath, monkeypatch, tmp_path, BARS.get(relpath, {}))
+    td.compare(relpath, results, tns, BARS.get(relpath, {}))

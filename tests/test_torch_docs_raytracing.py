@@ -19,5 +19,5 @@ def test_port_doc_executes(monkeypatch, tmp_path):
 
 
 def test_port_doc_matches_jax(monkeypatch, tmp_path):
-    jns, tns = td.run_pair(DOC, monkeypatch, tmp_path)
-    td.compare(DOC, jns, tns, {})
+    results, tns = td.run_pair(DOC, monkeypatch, tmp_path, {})
+    td.compare(DOC, results, tns, {})

@@ -25,7 +25,8 @@ head at the on-axis field, where the centroid is zero but for rounding: its
 gradient is the centroid's derivative projected on the direction of that
 rounding, so the two packages' values differ (ROADMAP watch-list).  Both are
 held to what the projection allows: at least the budget over the centroid
-derivative's length.
+derivative's length.  What the JAX example computes is read from its record
+(``_jax_refs``) where it is current.
 """
 import runpy
 import warnings
@@ -34,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.coatings as jcoat
 import prysm_tpu.x.optym as jopt
 import prysm_tpu.x.raytracing as jrt
@@ -63,6 +65,12 @@ def f64_cpu(monkeypatch):
 
 def _jax_example(name):
     return runpy.run_path(f'{EXAMPLES}/{name}.py')
+
+
+def _jax_run(name, compute, bar):
+    """What ``compute`` observes of the JAX example ``name``'s run, from its record
+    (``_jax_refs``) where it is current."""
+    return jax_ref(name, compute, bar=bar, reads=(f'{EXAMPLES}/{name}.py',))
 
 
 def _record(monkeypatch, owner, name, **overrides):
@@ -95,13 +103,19 @@ def _iterates(result, n):
     return [_host(r.x_next) for r in result.records[:n]]
 
 
-def test_lowfs_matches_jax(monkeypatch):
-    jax_mod = _jax_example('lowfs_realtime')
-    jax_R = _record(monkeypatch, jax_mod['main'].__globals__, 'reconstructor')
-    port_R = _record(monkeypatch, lowfs_realtime, 'reconstructor')
-    jax_err = jax_mod['main'](N=128, fN=48)
-    err = lowfs_realtime.main(N=128, fN=48)
+def _jax_lowfs():
+    with pytest.MonkeyPatch.context() as mp:
+        jax_mod = _jax_example('lowfs_realtime')
+        jax_R = _record(mp, jax_mod['main'].__globals__, 'reconstructor')
+        jax_err = jax_mod['main'](N=128, fN=48)
     (_, (jR, jI0)), = jax_R
+    return jR, jI0, jax_err
+
+
+def test_lowfs_matches_jax(monkeypatch):
+    jR, jI0, jax_err = _jax_run('lowfs_realtime', _jax_lowfs, (1e-10, 1e-10, 1e-9))
+    port_R = _record(monkeypatch, lowfs_realtime, 'reconstructor')
+    err = lowfs_realtime.main(N=128, fN=48)
     (_, (R, I0)), = port_R
     assert R.shape == (len(lowfs_realtime.NMS), 48 * 48)
     assert _rel(R, jR) < 1e-10 and _rel(I0, jI0) < 1e-10
@@ -109,28 +123,43 @@ def test_lowfs_matches_jax(monkeypatch):
     assert err == pytest.approx(jax_err, rel=1e-9)
 
 
+def _jax_dark_hole():
+    """The dark energy and its gradient at zero, the first 5 iterates, the suppression."""
+    with pytest.MonkeyPatch.context() as mp:
+        made = _record(mp, jopt, 'PrysmLBFGSB')
+        runs = _record(mp, jopt, 'run_until')
+        suppression = _jax_example('coronagraph_dark_hole')['main'](N=96, fN=48)
+    return made[0][0][0](made[0][0][1]), _iterates(runs[0][1], 5), suppression
+
+
 def test_dark_hole_matches_jax(monkeypatch):
-    made = {pkg: _record(monkeypatch, opt, 'PrysmLBFGSB') for pkg, opt in
-            (('jax', jopt), ('port', topt))}
-    runs = {pkg: _record(monkeypatch, opt, 'run_until') for pkg, opt in
-            (('jax', jopt), ('port', topt))}
-    suppression = {'jax': _jax_example('coronagraph_dark_hole')['main'](N=96, fN=48),
-                   'port': coronagraph_dark_hole.main(N=96, fN=48)}
-    (e0, g0), (je0, jg0) = ((made[pkg][0][0][0](made[pkg][0][0][1])) for pkg in ('port', 'jax'))
+    (je0, jg0), want, jax_suppression = _jax_run('coronagraph_dark_hole', _jax_dark_hole,
+                                                  (1e-10, 1e-8, 1e-8))
+    made = _record(monkeypatch, topt, 'PrysmLBFGSB')
+    runs = _record(monkeypatch, topt, 'run_until')
+    suppression = {'jax': jax_suppression, 'port': coronagraph_dark_hole.main(N=96, fN=48)}
+    e0, g0 = made[0][0][0](made[0][0][1])
     assert _rel(e0, je0) < 1e-10 and _rel(g0, jg0) < 1e-10
-    got, want = (_iterates(runs[pkg][0][1], 5) for pkg in ('port', 'jax'))
+    got = _iterates(runs[0][1], 5)
     assert len(got) == len(want) == 5
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-8
     assert suppression['port'] > 50.0 and suppression['jax'] > 50.0
 
 
+def _jax_retrieval():
+    """The first 3 iterates and the error."""
+    with pytest.MonkeyPatch.context() as mp:
+        runs = _record(mp, jopt, 'run_until')
+        err = _jax_example('phase_retrieval')['main'](N=128, fN=64)
+    return _iterates(runs[0][1], 3), err
+
+
 def test_retrieval_matches_jax(monkeypatch):
-    runs = {pkg: _record(monkeypatch, opt, 'run_until') for pkg, opt in
-            (('jax', jopt), ('port', topt))}
-    err = {'jax': _jax_example('phase_retrieval')['main'](N=128, fN=64),
-           'port': phase_retrieval.main(N=128, fN=64)}
-    got, want = (_iterates(runs[pkg][0][1], 3) for pkg in ('port', 'jax'))
+    want, jax_err = _jax_run('phase_retrieval', _jax_retrieval, 1e-9)
+    runs = _record(monkeypatch, topt, 'run_until')
+    err = {'jax': jax_err, 'port': phase_retrieval.main(N=128, fN=64)}
+    got = _iterates(runs[0][1], 3)
     assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-9
@@ -149,39 +178,55 @@ def _centroid_derivative(system):
     return np.hypot(J[0], J[1])
 
 
+def _jax_lens_design():
+    """The start merit, the EFL, the first 3 DLS iterates and the tolerances."""
+    with pytest.MonkeyPatch.context() as mp:
+        merits = _record(mp, jrt.Problem, 'merit')
+        solves = _record(mp, jrt.Problem, 'solve', maxiter=3)
+        tols = _record(mp, jrt.adjoint, 'inverse_sensitivity')
+        jax_system = _jax_example('lens_design')['main'](plot=False)
+    return (merits[0][1], float(jrt.EFL()(jax_system, JTraceCache(jax_system))),
+            [h['x'] for h in solves[0][1].history[:3]], np.asarray(tols[0][1]))
+
+
 def test_lens_design_matches_jax(monkeypatch):
-    merits = {pkg: _record(monkeypatch, rt.Problem, 'merit') for pkg, rt in
-              (('jax', jrt), ('port', trt))}
-    solves = {pkg: _record(monkeypatch, rt.Problem, 'solve', maxiter=3) for pkg, rt in
-              (('jax', jrt), ('port', trt))}
-    tols = {pkg: _record(monkeypatch, rt.adjoint, 'inverse_sensitivity') for pkg, rt in
-            (('jax', jrt), ('port', trt))}
-    jax_system = _jax_example('lens_design')['main'](plot=False)
+    jax_merit, jax_efl, want, jax_tol = _jax_run('lens_design', _jax_lens_design,
+                                                 (1e-10, 1e-10, 1e-9, 1e-8))
+    merits = _record(monkeypatch, trt.Problem, 'merit')
+    solves = _record(monkeypatch, trt.Problem, 'solve', maxiter=3)
+    tols = _record(monkeypatch, trt.adjoint, 'inverse_sensitivity')
     system = lens_design.main(plot=False)
-    assert _rel(merits['port'][0][1], merits['jax'][0][1]) < 1e-10
+    assert _rel(merits[0][1], jax_merit) < 1e-10
     efl = float(trt.EFL()(system, _TraceCache(system)))
-    jax_efl = float(jrt.EFL()(jax_system, JTraceCache(jax_system)))
     assert efl == pytest.approx(jax_efl, rel=1e-10)
-    got, want = ([h['x'] for h in solves[pkg][0][1].history[:3]] for pkg in ('port', 'jax'))
+    got = [h['x'] for h in solves[0][1].history[:3]]
     assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-9
-    tol, jax_tol = (np.asarray(tols[pkg][0][1]) for pkg in ('port', 'jax'))
+    tol = np.asarray(tols[0][1])
     assert _rel(tol[:3], jax_tol[:3]) < 1e-8
     floor = 5e-3 / _centroid_derivative(system)[3:]
     assert (tol[3:] >= floor * (1 - 1e-6)).all() and (jax_tol[3:] >= floor * (1 - 1e-6)).all()
 
 
+def _jax_coating_design():
+    """The start reflectance and the first 5 L-BFGS-B iterates."""
+    with pytest.MonkeyPatch.context() as mp:
+        rtas = _record(mp, jcoat, 'RTA')
+        refines = _record(mp, jcoat, 'refine', maxiter=5)
+        _jax_example('coating_design')['main'](plot=False)
+    return (np.asarray(_host(rtas[0][1][0])).mean(),
+            _iterates(refines[0][1].optimizer_result, 5))
+
+
 def test_coating_design_matches_jax(monkeypatch):
-    rtas = {pkg: _record(monkeypatch, coat, 'RTA') for pkg, coat in
-            (('jax', jcoat), ('port', tcoat))}
-    refines = {pkg: _record(monkeypatch, coat, 'refine', maxiter=5) for pkg, coat in
-               (('jax', jcoat), ('port', tcoat))}
-    _jax_example('coating_design')['main'](plot=False)
+    jR0, want = _jax_run('coating_design', _jax_coating_design, (1e-12, 1e-9))
+    rtas = _record(monkeypatch, tcoat, 'RTA')
+    refines = _record(monkeypatch, tcoat, 'refine', maxiter=5)
     coating_design.main(plot=False)
-    R0, jR0 = (np.asarray(_host(rtas[pkg][0][1][0])).mean() for pkg in ('port', 'jax'))
+    R0 = np.asarray(_host(rtas[0][1][0])).mean()
     assert R0 == pytest.approx(jR0, rel=1e-12)
-    got, want = (_iterates(refines[pkg][0][1].optimizer_result, 5) for pkg in ('port', 'jax'))
+    got = _iterates(refines[0][1].optimizer_result, 5)
     assert len(got) == len(want) == 5
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-9

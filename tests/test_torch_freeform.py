@@ -5,7 +5,8 @@ and 128^2 on the CPU in float64; the JAX package composes the same
 functions on the same inputs in x64.  Bar: 1e-10 of the reference's peak
 for every output (sag, slopes, fit coefficients, reconstruction, residual
 RMS, the four sag families; both images).  Without a card, both constructors
-raise unless asked for the CPU.
+raise unless asked for the CPU.  The JAX package's side is read from its
+record (``_jax_refs``) where it is current.
 """
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.convolution import conv as jconv, apply_transfer_functions as japply
 from prysm_tpu.coordinates import make_xy_grid, cart_to_polar
 from prysm_tpu.degradations import smear_ft as jsmear, jitter_ft as jjitter
@@ -65,7 +67,7 @@ def _jax_freeform(N):
 @pytest.mark.parametrize('fused', [True, False], ids=['fused', 'mode-stack'])
 @pytest.mark.parametrize('N', [64, 128])
 def test_freeform_fit_matches_jax(N, fused):
-    want, mask = _jax_freeform(N)
+    want, mask = jax_ref('freeform', _jax_freeform, N, bar=1e-10)
     fit = steps.build_freeform_fit(N, dtype=torch.float64, device='cpu', fused=fused)
     assert np.array_equal(fit.mask.numpy(), mask)
     got = fit()
@@ -77,10 +79,13 @@ def test_freeform_fit_matches_jax(N, fused):
     assert 0 < float(got['residual_rms']) < float(np.abs(np.asarray(want['z'])[mask]).max())
 
 
-def _jax_image_chain(N):
-    """The image chain composed of the JAX package's functions, and the flagship PSF."""
+def _jax_target(N):
     x, y = make_xy_grid(N, diameter=2.0)
-    target = jstar(*cart_to_polar(x, y), steps.IMAGE_SPOKES)
+    return jstar(*cart_to_polar(x, y), steps.IMAGE_SPOKES)
+
+
+def _jax_image_chain(N, target):
+    """The image chain composed of the JAX package's functions, and the flagship PSF."""
     xp, yp = make_xy_grid(N, diameter=2.2)
     dx = float(xp[0, 1] - xp[0, 0])
     r, t = cart_to_polar(xp, yp)
@@ -92,12 +97,13 @@ def _jax_image_chain(N):
     otf = jnp.fft.fft2(jnp.fft.ifftshift(psf))
     tfs = [otf, lambda fx, fy: jsmear(fx, fy, *steps.IMAGE_SMEAR),
            lambda fr: jjitter(fr, steps.IMAGE_JITTER)]
-    return target, psf, (jconv(target, psf), japply(target, 1.0, tfs))
+    return psf, (jconv(target, psf), japply(target, 1.0, tfs))
 
 
 @pytest.mark.parametrize('N', [64, 128])
 def test_image_chain_matches_jax(N):
-    target, psf, want = _jax_image_chain(N)
+    target = jax_ref('target', _jax_target, N)
+    psf, want = jax_ref('image-chain', _jax_image_chain, N, target, bar=1e-10)
     chain = steps.build_image_chain(N, dtype=torch.float64, device='cpu')
     assert np.array_equal(chain.target.numpy(), np.asarray(target))
     assert _rel(chain.psf, psf) <= 1e-10

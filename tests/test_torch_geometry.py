@@ -5,7 +5,8 @@ odd, square and non-square grids.  Bars: 1e-12 absolute on signed
 distances, masks and coverage (elementwise arithmetic; hypot and atan2
 differ in the last bit between XLA and torch), 1e-12 relative on
 interpolated and analytic values, equal on host-built matrices, index
-math and boolean masks away from ties.
+math and boolean masks away from ties.  The JAX package's interpolation and
+PSF sizes are read from their records (``_jax_refs``) where they are current.
 """
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import coordinates as jco
 from prysm_tpu import geometry as jgeo
 from prysm_tpu import psf as jpsf
@@ -199,6 +201,15 @@ def test_three_d_and_homography_helpers_match_jax():
         co.solve_for_planar_homography(src[:3], dst[:3])
 
 
+def _jax_interpolation(shape, img, xn, yn, xs, ys, xq, yq):
+    """The JAX package's warp, polar resampling and 2-D resampling of ``img``."""
+    jx, jy = jco.make_xy_grid(shape, diameter=2.2)
+    return (jco.warp(jnp.asarray(img), jnp.asarray(xn), jnp.asarray(yn)),
+            jco.uniform_cart_to_polar(jx, jy, jnp.asarray(img)),
+            jco.resample_2d(jnp.asarray(img), (jnp.asarray(xs), jnp.asarray(ys)),
+                            (jnp.asarray(xq), jnp.asarray(yq))))
+
+
 @pytest.mark.parametrize('shape', SHAPES.values(), ids=SHAPES.keys())
 def test_interpolation_matches_jax(shape):
     x, y, jx, jy = _grids(shape)
@@ -206,16 +217,14 @@ def test_interpolation_matches_jax(shape):
     rng = np.random.default_rng(2)
     xn = rng.uniform(-3, shape[1] + 2, shape)
     yn = rng.uniform(-3, shape[0] + 2, shape)
-    _close(co.warp(torch.from_numpy(img), torch.from_numpy(xn), torch.from_numpy(yn)),
-           jco.warp(jnp.asarray(img), jnp.asarray(xn), jnp.asarray(yn)))
-    for a, b in zip(co.uniform_cart_to_polar(x, y, torch.from_numpy(img)),
-                    jco.uniform_cart_to_polar(jx, jy, jnp.asarray(img))):
-        _close(a, b)
     xs, ys = x[0, :], y[:, 0]
     xq, yq = xs[::2] * 0.9, ys[::3] * 0.8
-    _close(co.resample_2d(torch.from_numpy(img), (xs, ys), (xq, yq)),
-           jco.resample_2d(jnp.asarray(img), (jnp.asarray(xs.numpy()), jnp.asarray(ys.numpy())),
-                           (jnp.asarray(xq.numpy()), jnp.asarray(yq.numpy()))))
+    warped, polar, resampled = jax_ref('interpolation', _jax_interpolation, shape, img, xn, yn,
+                                       *(a.numpy() for a in (xs, ys, xq, yq)), bar=1e-12)
+    _close(co.warp(torch.from_numpy(img), torch.from_numpy(xn), torch.from_numpy(yn)), warped)
+    for a, b in zip(co.uniform_cart_to_polar(x, y, torch.from_numpy(img)), polar):
+        _close(a, b)
+    _close(co.resample_2d(torch.from_numpy(img), (xs, ys), (xq, yq)), resampled)
     # differentiable: the gather's gradient reaches the image
     t = torch.from_numpy(img).requires_grad_(True)
     g, = torch.autograd.grad(co.warp(t, torch.from_numpy(xn), torch.from_numpy(yn)).sum(), t)
@@ -228,17 +237,27 @@ def _airy(shape, dx=0.5, fno=8.0, wvl=0.55):
     return np.array(jpsf.airydisk(jnp.asarray(r), fno, wvl)), r
 
 
+SIZES = ('fwhm', 'one_over_e', 'one_over_e_sq')
+
+
+def _jax_psf_sizes(shape, criteria):
+    """The Airy PSF of ``shape``, its three sizes and its size at 0.3, in the JAX package."""
+    data, _ = _airy(shape)
+    sizes = [float(getattr(jpsf, fn)(jnp.asarray(data), dx=0.5, criteria=criteria))
+             for fn in SIZES]
+    return data, sizes, float(jpsf.estimate_size(jnp.asarray(data), 0.3, dx=0.5,
+                                                 criteria=criteria))
+
+
 @pytest.mark.parametrize('criteria', ['first', 'last'])
 @pytest.mark.parametrize('shape', [(48, 48), (47, 50)], ids=['even', 'odd-rect'])
 def test_psf_sizes_match_jax(shape, criteria):
-    data, _ = _airy(shape)
-    for fn in ('fwhm', 'one_over_e', 'one_over_e_sq'):
+    data, sizes, at_03 = jax_ref('psf-sizes', _jax_psf_sizes, shape, criteria, bar=1e-12)
+    for fn, theirs in zip(SIZES, sizes):
         mine = getattr(psf, fn)(torch.from_numpy(data), dx=0.5, criteria=criteria)
-        theirs = getattr(jpsf, fn)(jnp.asarray(data), dx=0.5, criteria=criteria)
         assert float(mine) == pytest.approx(float(theirs), rel=1e-12)
     mine = psf.estimate_size(torch.from_numpy(data), 0.3, dx=0.5, criteria=criteria)
-    theirs = jpsf.estimate_size(jnp.asarray(data), 0.3, dx=0.5, criteria=criteria)
-    assert float(mine) == pytest.approx(float(theirs), rel=1e-12)
+    assert float(mine) == pytest.approx(float(at_03), rel=1e-12)
     with pytest.raises(ValueError, match='metric'):
         psf.estimate_size(torch.from_numpy(data), 'half', dx=0.5)
 

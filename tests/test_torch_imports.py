@@ -235,7 +235,9 @@ def test_design_verbs_run_and_match_the_jax_package(monkeypatch, verb):
     jax.config.update('jax_enable_x64', True)
     monkeypatch.setattr(config, '_device', 'cpu')
     monkeypatch.setattr(config, '_precision', torch.float64)
-    got, want = _design_verb_runs('prysm_tpu_torch')[verb], _design_verb_runs('prysm_tpu')[verb]
+    from _jax_refs import jax_ref
+    got = _design_verb_runs('prysm_tpu_torch')[verb]
+    want = jax_ref('design-verbs', _design_verb_runs, 'prysm_tpu', bar=1e-10)[verb]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
 
 

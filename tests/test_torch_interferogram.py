@@ -8,7 +8,9 @@ NaN where it has NaN, but where a test says why it is wider: ``pvr``
 solves the normal equations of 37 unnormalized Fringe Zernikes (to n = 12),
 whose conditioning takes the two summation orders 1e-11 apart; ``fit_psd``'s
 500 Adam steps carry the two autodiffs' last-bit differences, 1e-8.
-Random synthesis is fed the same uniform draws in both packages.
+Random synthesis is fed the same uniform draws in both packages.  The JAX
+package's ``pvr`` and Adam fit are read from their records (``_jax_refs``)
+where they are current.
 """
 import warnings
 
@@ -19,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import interferogram as jifg
 from prysm_tpu.coordinates import make_xy_grid as jgrid
 
@@ -220,7 +223,8 @@ def test_fit_psd_ab_closed_form():
 def test_fit_psd_abc_adam():
     f, p = _psd_curve()
     got = tifg.fit_psd(torch.from_numpy(f), torch.from_numpy(p))
-    ref = jifg.fit_psd(jnp.asarray(f), jnp.asarray(p))
+    ref = jax_ref('fit-psd-abc', lambda f, p: jifg.fit_psd(jnp.asarray(f), jnp.asarray(p)), f, p,
+                  bar=1e-8)
     assert isinstance(got, np.ndarray)
     np.testing.assert_allclose(got, ref, rtol=1e-8)
 
@@ -274,10 +278,12 @@ def test_interferogram_statistics(name):
 
 
 def test_pvr():
-    t, j = _pair()
+    t, _ = _pair()
+    pvr, pvr5 = jax_ref('pvr', lambda: (lambda j: (j.pvr(), j.pvr(normalization_radius=5.0)))(
+        _pair()[1]), bar=1e-10)
     # the normal equations of 37 unnormalized Fringe Zernikes (module docstring)
-    _close(t.pvr(), j.pvr(), rtol=1e-10)
-    _close(t.pvr(normalization_radius=5.0), j.pvr(normalization_radius=5.0), rtol=1e-10)
+    _close(t.pvr(), pvr, rtol=1e-10)
+    _close(t.pvr(normalization_radius=5.0), pvr5, rtol=1e-10)
     with pytest.raises(ValueError, match='square'):
         _pair(_surface()[:, :40])[0].pvr()
 

@@ -9,7 +9,8 @@ lowpass, slopes; then ``fit_psd``) on the same numpy frames under
 NaN, but PVr at 1e-10 (the normal equations of 37 unnormalized Fringe
 Zernikes; see tests/test_torch_interferogram.py) and the fitted PSD
 coefficients at 1e-8 (500 Adam steps).  The Zernike barplots run under
-matplotlib's Agg backend.
+matplotlib's Agg backend.  The JAX package's results are read from their
+record (``_jax_refs``) where it is current.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import polynomials as jpoly
 from prysm_tpu.coordinates import make_xy_grid
 from prysm_tpu.interferogram import Interferogram, abc_psd, bandlimited_rms, fit_psd
@@ -40,7 +42,7 @@ def measured():
     noise.reset_launches()
     out = path()
     assert not any({**zk.LAUNCHES, **noise.LAUNCHES}.values())
-    return path, out, _jax_metrology(measurement), measurement
+    return path, out, jax_ref('metrology', _jax_metrology, measurement, bar=1e-12), measurement
 
 
 def _jax_metrology(measurement):
@@ -86,8 +88,9 @@ def test_metrology_psd_fit_matches_jax(measured):
     path, out, ref, _ = measured
     rho, az = np.asarray(ref['azavg_rho']), np.asarray(ref['azavg'])
     keep = (rho > 0) & np.isfinite(az) & (az > 0)
-    np.testing.assert_allclose(path.fit_psd(out), fit_psd(rho[keep], az[keep], abc_psd),
-                               rtol=1e-8)
+    want = jax_ref('fit-psd', lambda rho, az: fit_psd(rho, az, abc_psd), rho[keep], az[keep],
+                   bar=1e-8)
+    np.testing.assert_allclose(path.fit_psd(out), want, rtol=1e-8)
 
 
 def test_measurement_is_recovered_and_the_clip_is_real(measured):

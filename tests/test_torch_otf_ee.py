@@ -6,7 +6,8 @@ even real PSFs, the full-plane MTF for odd ones and ``return_more``) and
 on the adjoints, which are also held to torch autograd; 1e-12 on the
 elementwise analytic helpers, which evaluate the same rational forms;
 the A&S ``_j1`` and ``_j0`` against scipy at their documented 1e-7
-absolute accuracy.
+absolute accuracy.  The JAX package's encircled energies and adjoints are
+read from their records (``_jax_refs``) where they are current.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import otf as jotf
 from prysm_tpu import mathops as jmath
 
@@ -54,7 +56,8 @@ def test_encircled_energy_matches_jax(case):
     shape, dx, radius = EE_CASES[case]
     p = _psf(shape, 1)
     out = otf.encircled_energy(torch.from_numpy(p), dx, radius)
-    want = jotf.encircled_energy(jnp.asarray(p), dx, radius)
+    want = jax_ref('ee', lambda p, dx, radius: jotf.encircled_energy(jnp.asarray(p), dx, radius),
+                   p, dx, radius, bar=1e-9)
     assert _rel(out.numpy(), want) < 1e-9
 
 
@@ -77,19 +80,25 @@ def test_encircled_energy_weights_are_built_once():
     assert (info.misses, info.hits) == (1, 2)
 
 
+def _jax_ee_adjoint(bars, p, radii):
+    """The JAX package's adjoint of the encircled energy at ``radii``, and jax.grad of it."""
+    jadj = jotf.encircled_energy_adjoint(bars, jnp.asarray(p), 1.1, radii)
+    jgrad = jax.grad(lambda q: jnp.vdot(jnp.asarray(bars),
+                                        jotf.encircled_energy(q, 1.1, radii)))(jnp.asarray(p))
+    return jadj, jgrad
+
+
 @pytest.mark.parametrize('shape', [(32, 32), (31, 33)], ids=['even', 'odd'])
 def test_encircled_energy_adjoint_matches_jax_and_autograd(shape):
     p = _psf(shape, 4)
     radii, bars = (3.0, 6.0), (0.7, -1.3)
     adj = otf.encircled_energy_adjoint(bars, torch.from_numpy(p), 1.1, radii).numpy()
-    jadj = jotf.encircled_energy_adjoint(bars, jnp.asarray(p), 1.1, radii)
+    jadj, jgrad = jax_ref('ee-adjoint', _jax_ee_adjoint, bars, p, radii, bar=1e-9)
     assert _rel(adj, jadj) < 1e-9
     x = torch.from_numpy(p).requires_grad_(True)
     ee = otf.encircled_energy(x, 1.1, radii)
     grad, = torch.autograd.grad(ee, x, torch.tensor(bars, dtype=torch.float64))
     assert _rel(grad.numpy(), adj) < 1e-9
-    jgrad = jax.grad(lambda q: jnp.vdot(jnp.asarray(bars),
-                                        jotf.encircled_energy(q, 1.1, radii)))(jnp.asarray(p))
     assert _rel(grad.numpy(), jgrad) < 1e-9
 
 

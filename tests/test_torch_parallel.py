@@ -12,7 +12,8 @@ and sends its results back.  The patterns are held:
 * against the JAX package's sharded functions on the 8 virtual CPU devices
   of ``conftest.py`` (meshes ``wl 2 x ty 4``, hybrid ``{'wl': 2} x
   {'ty': 4}``, ``lv 8``, ``ct 8``, ``fy 8``, ``wl 8``, ``rays 8``), from the
-  same numpy inputs, at 1e-10;
+  same numpy inputs, at 1e-10 (their results read from their record,
+  ``_jax_refs``, where it is current);
 * for equality across ranks (replicated results) and for their
   ``ValueError``s.
 
@@ -404,6 +405,13 @@ def world(request, tmp_path_factory):
 
 @pytest.fixture(scope='module')
 def jax_results():
+    """The JAX package's sharded results, read from their record (``_jax_refs``) where it
+    is current."""
+    from _jax_refs import jax_ref
+    return jax_ref('sharded', _jax_results, bar=1e-10)
+
+
+def _jax_results():
     import jax
     import jax.numpy as jnp
     import prysm_tpu.x.materials as jmat

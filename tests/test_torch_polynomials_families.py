@@ -6,7 +6,9 @@ Chebyshev (four kinds), Legendre, Hermite (He, H), Laguerre, Dickson
 ``_seq``, ``_der`` and ``_der_seq`` forms.  The same numpy inputs (even
 and odd 2-D grids, 1-D vectors and Python scalars) go through the JAX
 function in x64 and the port on the CPU in float64, with
-``config.precision = 64``.  Bar: 1e-12 of the reference's max |value|.
+``config.precision = 64``.  Bar: 1e-12 of the reference's max |value|.  The JAX
+package's families and Zernike derivatives are read from their records
+(``_jax_refs``) where they are current.
 """
 from importlib import import_module
 
@@ -16,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 import prysm_tpu.polynomials as jpoly
 import prysm_tpu_torch.polynomials as tpoly
 from prysm_tpu_torch.conf import config
@@ -86,15 +89,22 @@ FAMILIES = {
 @pytest.mark.parametrize('form', ['', '_seq', '_der', '_der_seq'])
 @pytest.mark.parametrize('family', sorted(FAMILIES))
 def test_family_matches_jax(family, form, kind):
-    xt, xj = _inputs(kind)
+    xt, _ = _inputs(kind)
     params = FAMILIES[family]
     name = family + form
-    tf, jf = getattr(tpoly, name), getattr(jpoly, name)
+    tf = getattr(tpoly, name)
+
+    def jax_side(name, params, kind):
+        _, xj = _inputs(kind)
+        jf = getattr(jpoly, name)
+        return jf(NS, *params, xj) if name.endswith('_seq') else [jf(n, *params, xj) for n in NS]
+
+    want = jax_ref('family', jax_side, name, params, kind, bar=TOL)
     if form.endswith('_seq'):
-        _close(tf(NS, *params, xt), jf(NS, *params, xj))
+        _close(tf(NS, *params, xt), want)
     else:
-        for n in NS:
-            _close(tf(n, *params, xt), jf(n, *params, xj))
+        for n, w in zip(NS, want):
+            _close(tf(n, *params, xt), w)
 
 
 @pytest.mark.parametrize('alpha,beta', [(0, 0), (0, 3), (-0.5, -0.5), (2, 1), (0.5, 1.5)])
@@ -244,25 +254,41 @@ def test_xy_j_to_mn_matches_jax():
 NMS_DER = [(n, m) for n in range(7) for m in range(-n, n + 1, 2)]
 
 
+POLAR_DER = ((0, 0), (2, 0), (3, -1), (4, 2), (5, 5), (6, -4))
+XY_DER = ((0, 0), (1, 1), (3, -1), (4, 2), (5, -5))
+
+
+def _jax_zernike_derivatives(kind, norm, c):
+    """The JAX package's polar and cartesian Zernike derivatives, their sequences and the
+    cartesian sum's, on the inputs of ``kind``."""
+    _, rj = _inputs(kind, 0.0, 1.0, seed=1)
+    _, tj = _inputs(kind, -np.pi, np.pi, seed=2)
+    _, xj = _inputs(kind, -0.7, 0.7, seed=3)
+    _, yj = _inputs(kind, -0.7, 0.7, seed=4)
+    return ([jpoly.zernike_nm_der(n, m, rj, tj, norm) for n, m in POLAR_DER],
+            jpoly.zernike_nm_der_seq(NMS_DER, rj, tj, norm),
+            [jpoly.zernike_nm_der_xy(n, m, xj, yj, norm) for n, m in XY_DER],
+            jpoly.zernike_nm_der_xy_seq(NMS_DER, xj, yj, norm),
+            jpoly.zernike_sum_der_xy(c, NMS_DER, xj, yj, norm))
+
+
 @pytest.mark.parametrize('norm', [True, False])
 @pytest.mark.parametrize('kind', KINDS)
 def test_zernike_derivatives_match_jax(kind, norm):
-    rt, rj = _inputs(kind, 0.0, 1.0, seed=1)
-    tt, tj = _inputs(kind, -np.pi, np.pi, seed=2)
-    for n, m in ((0, 0), (2, 0), (3, -1), (4, 2), (5, 5), (6, -4)):
-        _close(tpoly.zernike_nm_der(n, m, rt, tt, norm), jpoly.zernike_nm_der(n, m, rj, tj, norm))
-    _close(tpoly.zernike_nm_der_seq(NMS_DER, rt, tt, norm),
-           jpoly.zernike_nm_der_seq(NMS_DER, rj, tj, norm))
-    xt, xj = _inputs(kind, -0.7, 0.7, seed=3)
-    yt, yj = _inputs(kind, -0.7, 0.7, seed=4)
-    for n, m in ((0, 0), (1, 1), (3, -1), (4, 2), (5, -5)):
-        _close(tpoly.zernike_nm_der_xy(n, m, xt, yt, norm),
-               jpoly.zernike_nm_der_xy(n, m, xj, yj, norm))
-    _close(tpoly.zernike_nm_der_xy_seq(NMS_DER, xt, yt, norm),
-           jpoly.zernike_nm_der_xy_seq(NMS_DER, xj, yj, norm))
+    rt, _ = _inputs(kind, 0.0, 1.0, seed=1)
+    tt, _ = _inputs(kind, -np.pi, np.pi, seed=2)
     c = list(np.random.default_rng(9).normal(size=len(NMS_DER)))
-    _close(tpoly.zernike_sum_der_xy(c, NMS_DER, xt, yt, norm),
-           jpoly.zernike_sum_der_xy(c, NMS_DER, xj, yj, norm))
+    polar, polar_seq, xy, xy_seq, xy_sum = jax_ref(
+        'zernike-derivatives', _jax_zernike_derivatives, kind, norm, c, bar=TOL)
+    for (n, m), want in zip(POLAR_DER, polar):
+        _close(tpoly.zernike_nm_der(n, m, rt, tt, norm), want)
+    _close(tpoly.zernike_nm_der_seq(NMS_DER, rt, tt, norm), polar_seq)
+    xt, _ = _inputs(kind, -0.7, 0.7, seed=3)
+    yt, _ = _inputs(kind, -0.7, 0.7, seed=4)
+    for (n, m), want in zip(XY_DER, xy):
+        _close(tpoly.zernike_nm_der_xy(n, m, xt, yt, norm), want)
+    _close(tpoly.zernike_nm_der_xy_seq(NMS_DER, xt, yt, norm), xy_seq)
+    _close(tpoly.zernike_sum_der_xy(c, NMS_DER, xt, yt, norm), xy_sum)
 
 
 def test_zernike_sum_der_xy_is_the_stack_and_its_gradient():

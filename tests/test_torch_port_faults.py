@@ -38,6 +38,9 @@ float32, and take the inputs the JAX package takes:
    same operations, the JAX package's only float64 rounding apart.  The
    JAX side's transforms run under ``jax.jit`` (eager JAX compiles each
    operation on its own, which takes seconds here).
+
+The needle function of fault 9 and the serial gradient of fault 17 are read
+from their records (``_jax_refs``) where they are current.
 """
 import datetime
 import os
@@ -51,6 +54,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import coordinates as jcoords
 from prysm_tpu import fttools as jft
 from prysm_tpu import mathops as jmath
@@ -193,8 +197,8 @@ def test_fault9_needle_takes_the_shallowest_depth_of_a_thickening():
                                               target=0.0)])
 
     P = tcoat.needle_function(tcoat.Stack(n, d, 1.52), merit(tcoat), 1.38, z).numpy()
-    Pj = np.asarray(jcoat.needle_function(jcoat.Stack(n, d, 1.52), merit(jcoat), 1.38,
-                                          jnp.asarray(z)))
+    Pj = jax_ref('fault9-needle', lambda n, d, z: jcoat.needle_function(
+        jcoat.Stack(n, d, 1.52), merit(jcoat), 1.38, jnp.asarray(z)), n, d, z, bar=1e-14)
     assert np.abs(P - Pj).max() <= 1e-12 * np.abs(Pj).max()
     assert abs(P[35] - P[34]) <= 1e-14 * abs(P[34]) and abs(Pj[35] - Pj[34]) <= 1e-14 * abs(Pj[34])
     best = tneedle._best_insertion(tcoat.Stack(n, d, 1.52), merit(tcoat), [1.38, 2.05], z)
@@ -700,12 +704,15 @@ def test_fault17_collectives_take_grad_jvp_and_vmap(tmp_path):
     from prysm_tpu.parallel.broadband import plan_mdft_spectral as jplan_spectral
     from prysm_tpu.parallel.sharding import broadband_psf as jbroadband_psf
     got = _spawn17(2, str(tmp_path))
-    inp = _inputs17()
-    jplan = jplan_spectral(inp['dx'], (N17, N17), 0.4, FN17, inp['wavelengths'], 10.0)
-    jargs = tuple(jnp.asarray(inp[k]) for k in ('amp', 'modes', 'wavelengths', 'weights'))
-    I_meas = jbroadband_psf(jnp.asarray(inp['coefs']) * 0.5, *jargs, jplan)
-    want = jax.jit(jax.grad(lambda c: jnp.sum((jbroadband_psf(c, *jargs, jplan) - I_meas) ** 2)))(
-        jnp.asarray(inp['coefs']))
+
+    def jax_grad(inp):
+        jplan = jplan_spectral(inp['dx'], (N17, N17), 0.4, FN17, inp['wavelengths'], 10.0)
+        jargs = tuple(jnp.asarray(inp[k]) for k in ('amp', 'modes', 'wavelengths', 'weights'))
+        I_meas = jbroadband_psf(jnp.asarray(inp['coefs']) * 0.5, *jargs, jplan)
+        return jax.jit(jax.grad(lambda c: jnp.sum((jbroadband_psf(c, *jargs, jplan) - I_meas)
+                                                  ** 2)))(jnp.asarray(inp['coefs']))
+
+    want = jax_ref('fault17-grad', jax_grad, _inputs17(), bar=BAR)
     for rank, out in got.items():
         _close(out['serial_grad'], want, f'rank {rank}: serial gradient vs jax.grad')
         for prefix in ('', 'focus_'):

@@ -10,7 +10,9 @@ port with ``config.precision = 64`` on the CPU.  Host numpy modules
 traced quantities within 1e-10 of each quantity's largest magnitude
 (the chief-ray probes, the parabasal tangents, the fits); the lens-analysis
 step (``steps.build_lens_analysis``) at ``Sampling.hex(6)`` and a 128^2
-pupil against the same composition of JAX functions within 1e-9.
+pupil against the same composition of JAX functions within 1e-9.  The JAX
+package's side of the slow comparisons is read from its record
+(``_jax_refs``) where it is current.
 """
 import dataclasses
 import importlib
@@ -21,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.materials as jmat
 import prysm_tpu.x.raytracing as jrt
 from prysm_tpu.x.raytracing import adjoint as ja
@@ -268,23 +271,32 @@ def test_resolve_exit_pupil_geometric_route():
     assert _rel(t, np.asarray(j)) <= BAR
 
 
-@pytest.fixture(scope='module')
-def launched():
+def _jax_launched():
     system = doublet(jrt, jsr)
     P, S = jrt.launch(system, system.field(1), WVL, jrt.Sampling.hex(4))
     return np.asarray(P), np.asarray(S)
 
 
+@pytest.fixture(scope='module')
+def launched():
+    return jax_ref('launched', _jax_launched, bar=BAR)
+
+
+def _jax_wavefront(P, S, output, nms):
+    jsys = doublet(jrt, jsr)
+    j = jrt.wavefront(jsys, P, S, WVL, field=jsys.field(1), output=output)
+    return j, jrt.wavefront_zernike_fit(*j, nms)
+
+
 @pytest.mark.parametrize('output', ['length', 'waves'])
 def test_wavefront_and_fit_match_jax(launched, output):
     P, S = launched
-    jsys, tsys = doublet(jrt, jsr), doublet(trt, tsr)
-    j = jrt.wavefront(jsys, P, S, WVL, field=jsys.field(1), output=output)
+    tsys = doublet(trt, tsr)
+    nms = [(n, m) for n in range(6) for m in range(-n, n + 1, 2)]
+    j, (jc, jr) = jax_ref('wavefront', _jax_wavefront, P, S, output, nms, bar=BAR)
     t = tsys.analysis.wavefront(P, S, WVL, field=tsys.field(1), output=output)
     for a, b in zip(t, j):
         assert _rel(a, np.asarray(b)) <= BAR
-    nms = [(n, m) for n in range(6) for m in range(-n, n + 1, 2)]
-    jc, jr = jrt.wavefront_zernike_fit(*j, nms)
     tc, tr = trt.wavefront_zernike_fit(*t, nms)
     assert _rel(tc, jc) <= 1e-9 and tr == pytest.approx(jr, rel=1e-8)
 
@@ -346,7 +358,8 @@ def s_hex(system, n):
 @pytest.mark.parametrize('verb', sorted(_verbs()))
 def test_analysis_verbs_match_jax(verb):
     fn = _verbs()[verb]
-    j = np.asarray(fn(doublet(jrt, jsr)), dtype=float)
+    j = jax_ref('verb', lambda verb: np.asarray(_verbs()[verb](doublet(jrt, jsr)), dtype=float),
+                verb, bar=BAR)
     t = np.asarray(fn(doublet(trt, tsr)), dtype=float)
     assert np.isfinite(j).any()
     assert _rel(t, j) <= BAR
@@ -354,7 +367,8 @@ def test_analysis_verbs_match_jax(verb):
 
 def test_device_wavefront_fit_on_an_optical_system_matches_jax():
     nms = [(n, m) for n in range(5) for m in range(-n, n + 1, 2)]
-    jc, jr = j_device_fit(doublet(jrt, jsr), nms, sampling=jrt.Sampling.hex(4))
+    jc, jr = jax_ref('device-fit', lambda nms: j_device_fit(
+        doublet(jrt, jsr), nms, sampling=jrt.Sampling.hex(4)), nms, bar=1e-9)
     tc, tr = trt.device_wavefront_fit(doublet(trt, tsr), nms, sampling=trt.Sampling.hex(4),
                                       device='cpu')
     assert tc.shape == (1, 2, len(nms))
@@ -363,12 +377,18 @@ def test_device_wavefront_fit_on_an_optical_system_matches_jax():
 
 # ---------- real aiming through the continuation ladder -----------------------------
 
+def _jax_fisheye_launch():
+    j = jsr.fisheye_system()
+    j.ray_aiming = 'real'
+    return jrt.launch(j, j.field(2), j.wavelength(), jrt.Sampling.hex(3))
+
+
 def test_fisheye_real_aiming_matches_jax_at_50_degrees():
     """The fish-eye's 50 degree field: real aiming lands every ray in the
     first pass in both packages (the ladder is not needed there)."""
-    j, t = jsr.fisheye_system(), tsr.fisheye_system()
-    j.ray_aiming = t.ray_aiming = 'real'
-    jP, jS = jrt.launch(j, j.field(2), j.wavelength(), jrt.Sampling.hex(3))
+    t = tsr.fisheye_system()
+    t.ray_aiming = 'real'
+    jP, jS = jax_ref('fisheye-50', _jax_fisheye_launch, bar=1e-9)
     tP, tS = trt.launch(t, t.field(2), t.wavelength(), trt.Sampling.hex(3))
     assert np.isfinite(tS).all()
     assert _rel(tP, np.asarray(jP)) <= 1e-9 and _rel(tS, np.asarray(jS)) <= 1e-9
@@ -396,9 +416,13 @@ def test_fisheye_ladder_places_its_rungs_by_parabasal(monkeypatch):
     assert len(calls) > 1, 'the 70 degree launch did not reach the ladder'
     assert np.isfinite(S).all()
     field, z = calls[0]
-    j = jsr.fisheye_system()
-    j.ray_aiming = 'real'
-    zj = jlaunch._parabasal_ep_z(j, jrt.Field(field.hx, field.hy, unit='deg'), j.wavelength())
+
+    def first_rung(hx, hy):
+        j = jsr.fisheye_system()
+        j.ray_aiming = 'real'
+        return jlaunch._parabasal_ep_z(j, jrt.Field(hx, hy, unit='deg'), j.wavelength())
+
+    zj = jax_ref('ladder-rung', first_rung, field.hx, field.hy, bar=1e-12)
     assert z == pytest.approx(zj, rel=1e-12)
     at_stop = _host(trt.raytrace(t.to_surfaces(), P, S, t.wavelength()).P)[
         tsr.FISHEYE_STOP_INDEX + 1]
@@ -466,7 +490,8 @@ class _JaxLensAnalysis:
 
 @pytest.fixture(scope='module')
 def jax_lens_analysis():
-    return _JaxLensAnalysis()()
+    return jax_ref('lens-analysis', lambda: _JaxLensAnalysis()(),
+                   bar=(1e-9, 1e-6, 1e-9, 1e-9, 1e-12))
 
 
 @pytest.mark.parametrize('fused', [True, False])

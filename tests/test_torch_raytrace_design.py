@@ -10,12 +10,16 @@ within 1e-9.  Central differences check the ``'auto'`` Jacobian within 1e-6 of e
 column's largest entry: Richardson-extrapolated from the DLS's step (``FD_STEP``, 1e-6
 scaled by max(1, |x|)) and twice it, since at that step alone the curvature columns'
 truncation is 5e-6, and at a tenth of it the wavefront row's rounding (its OPD is a
-difference of 100 mm paths) is 3e-6 of the thickness columns.
+difference of 100 mm paths) is 3e-6 of the thickness columns.  The JAX package's
+start and iterates are read from their record (``_jax_refs``) where it is current.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.materials as jmat
 import prysm_tpu.x.raytracing as jrt
 from prysm_tpu.x.raytracing import lensdata as jlensdata
@@ -86,25 +90,30 @@ def design_problem(rt, system, gradient='auto'):
                       gradient=gradient)
 
 
+def _start(name):
+    """One package's problem at the start: its free vector, residuals, 'auto' Jacobian,
+    trace count and equalities."""
+    prob = design_problem(*systems()[name])
+    x = prob.x0()
+    r, cache = prob.residuals(x, return_cache=True)
+    return prob, {'x': x, 'r': r, 'J': prob.residual_jacobian(x), 'n_traces': cache.n_traces,
+                  'eq': prob.equalities(x)}
+
+
 @pytest.fixture(scope='module')
 def start():
     """Both packages' residuals and 'auto' Jacobians at the start, and the port's FD."""
     saved = config._precision, config._device
     config._precision, config._device = torch.float64, 'cpu'
     try:
-        out = {}
-        for name, (rt, system) in systems().items():
-            prob = design_problem(rt, system)
-            x = prob.x0()
-            r, cache = prob.residuals(x, return_cache=True)
-            out[name] = {'x': x, 'r': r, 'J': prob.residual_jacobian(x),
-                         'n_traces': cache.n_traces, 'eq': prob.equalities(x)}
-            if name == 'torch':
-                fd = [np.zeros_like(out[name]['J']) for _ in range(2)]
-                for k, h in enumerate((FD_STEP, 2 * FD_STEP)):
-                    prob._fd_fill(fd[k], list(range(len(prob.operands))), x, h)
-                out[name]['fd'] = (4 * fd[0] - fd[1]) / 3
-        return out
+        prob, port = _start('torch')
+        fd = [np.zeros_like(port['J']) for _ in range(2)]
+        for k, h in enumerate((FD_STEP, 2 * FD_STEP)):
+            prob._fd_fill(fd[k], list(range(len(prob.operands))), port['x'], h)
+        port['fd'] = (4 * fd[0] - fd[1]) / 3
+        ref = jax_ref('start', lambda: _start('jax')[1], bar=BAR)
+        ref['x'] = jax_ref('start-x', lambda: design_problem(*systems()['jax']).x0())
+        return {'torch': port, 'jax': ref}
     finally:
         config._precision, config._device = saved
 
@@ -212,21 +221,32 @@ def test_adjoint_seeds_and_values_match(name):
     assert abs(out['torch'][1] - out['jax'][1]) <= BAR * abs(out['jax'][1])
 
 
+def _iterates(name):
+    """One package's DLS (steps.DESIGN_SOLVE) for ITERATES iterations: the result, the
+    EFL after, its target, and the merit before and after."""
+    rt, system = systems()[name]
+    prob = design_problem(rt, system)
+    merit0 = prob.merit(prob.x0())
+    res = prob.solve(**{**steps.DESIGN_SOLVE, 'maxiter': ITERATES})
+    efl = float(rt.effective_focal_length(system.to_surfaces(), wvl=WVL))
+    return (res, efl, prob.equality_constraints[0].target, merit0, prob.merit(prob.x0()))
+
+
+def _jax_iterates():
+    res, *rest = _iterates('jax')
+    return ({'history': [{'x': h['x'], 'cost': h['cost']} for h in res.history],
+             'active_inequalities': res.active_inequalities, 'lambda_eq': res.lambda_eq},
+            *rest)
+
+
 @pytest.fixture(scope='module')
 def iterates():
-    """The designer's DLS (steps.DESIGN_SOLVE) for ITERATES iterations in both packages."""
+    """The designer's DLS for ITERATES iterations in both packages."""
     saved = config._precision, config._device
     config._precision, config._device = torch.float64, 'cpu'
     try:
-        out = {}
-        for name, (rt, system) in systems().items():
-            prob = design_problem(rt, system)
-            merit0 = prob.merit(prob.x0())
-            res = prob.solve(**{**steps.DESIGN_SOLVE, 'maxiter': ITERATES})
-            efl = float(rt.effective_focal_length(system.to_surfaces(), wvl=WVL))
-            out[name] = (res, efl, prob.equality_constraints[0].target, merit0,
-                         prob.merit(prob.x0()))
-        return out
+        res, *rest = jax_ref('iterates', _jax_iterates, bar=ITERATE_BAR)
+        return {'torch': _iterates('torch'), 'jax': (types.SimpleNamespace(**res), *rest)}
     finally:
         config._precision, config._device = saved
 

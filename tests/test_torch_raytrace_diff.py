@@ -14,7 +14,9 @@ quantity's largest magnitude; host linear algebra within 1e-13.
 One deliberate difference: a tensor curvature is never static, so the
 port keeps a plane on its conic path, where d(sag)/dc = r^2 / 2 at c = 0;
 the JAX package takes its plane branch there, whose curvature tangent is
-0 (ROADMAP Queue 3).  ``test_curvature_seed_on_a_plane`` pins both.
+0 (ROADMAP Queue 3).  ``test_curvature_seed_on_a_plane`` pins both.  The
+JAX package's side of the slow comparisons is read from its record
+(``_jax_refs``) where it is current.
 """
 import types
 
@@ -24,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.raytracing as jrt
 from prysm_tpu.x.raytracing import _diff_raytrace as jd
 from prysm_tpu.x.raytracing import adjoint as ja
@@ -80,19 +83,36 @@ def _port():
     return precision_as(torch.float64), device_as('cpu')
 
 
+TANGENTS = ('P', 'OPL', 'status', 'Pdot', 'Sdot', 'Ldot')
+
+
+def _jax_launch():
+    system = doublet(jrt, jsr)
+    P, S = jrt.launch(system, system.field(1), WVL, jrt.Sampling.hex(3))
+    return dict(P=np.asarray(P), S=np.asarray(S), xp=system.exit_pupil(WVL))
+
+
+def _jax_side(P, S, xp):
+    system = doublet(jrt, jsr)
+    surfaces = system.to_surfaces()
+    tangents = jd.raytrace_with_tangents(surfaces, P, S, WVL, seeds(jd))
+    return dict(seed_names=[s.name for s in tangents.seeds],
+                tangents={k: getattr(tangents, k) for k in TANGENTS},
+                wavefront=jd.wavefront_with_tangents(surfaces, P, S, WVL, seeds(jd), P_xp=xp,
+                                                     field=system.field(1)),
+                multi=ja.adjoint_gradient_multi(system, P, S, WVL, seeds(ja), heads(ja)))
+
+
 @pytest.fixture(scope='module')
 def jax_side():
     """The JAX package's tangents and sensitivities, computed once."""
-    system = doublet(jrt, jsr)
-    P, S = jrt.launch(system, system.field(1), WVL, jrt.Sampling.hex(3))
-    P, S = np.asarray(P), np.asarray(S)
-    surfaces = system.to_surfaces()
-    xp = system.exit_pupil(WVL)
-    out = types.SimpleNamespace(P=P, S=S, xp=xp)
-    out.tangents = jd.raytrace_with_tangents(surfaces, P, S, WVL, seeds(jd))
-    out.wavefront = jd.wavefront_with_tangents(surfaces, P, S, WVL, seeds(jd), P_xp=xp,
-                                               field=system.field(1))
-    out.multi = ja.adjoint_gradient_multi(system, P, S, WVL, seeds(ja), heads(ja))
+    launch = jax_ref('launch', _jax_launch)
+    bars = dict(seed_names=0.0, tangents=dict(P=1e-13, OPL=1e-13, status=0.0, Pdot=BAR,
+                                              Sdot=BAR, Ldot=BAR),
+                wavefront=(1e-12, 1e-12, 1e-12, BAR), multi=(BAR, 1e-13))
+    out = types.SimpleNamespace(**launch, **jax_ref('jax-side', _jax_side, *launch.values(),
+                                                    bar=bars))
+    out.tangents = types.SimpleNamespace(**out.tangents)
     return out
 
 
@@ -126,7 +146,7 @@ def test_nominal_trace_matches(jax_side, port_side):
     j, t = jax_side.tangents, port_side.tangents
     assert _rel(t.P, j.P) <= 1e-13 and _rel(t.OPL, j.OPL) <= 1e-13
     np.testing.assert_array_equal(_host(t.status), np.asarray(j.status))
-    assert t.n_params == 5 and [s.name for s in t.seeds] == [s.name for s in j.seeds]
+    assert t.n_params == 5 and [s.name for s in t.seeds] == jax_side.seed_names
 
 
 @pytest.mark.parametrize('k', range(5), ids=SEED_NAMES)
@@ -149,9 +169,10 @@ def test_wavefront_tangents_match_jax(jax_side, port_side, k):
 def test_wavefront_tangents_geometric_pupil_in_waves(jax_side):
     """No P_xp: the closing's sphere passes through the chief's closest
     approach to the axis, its tangent carried through the same jvp."""
-    jsys, tsys = doublet(jrt, jsr), doublet(trt, tsr)
-    j = jd.wavefront_with_tangents(jsys.to_surfaces(), jax_side.P, jax_side.S, WVL,
-                                   seeds(jd)[:2], output='waves')
+    tsys = doublet(trt, tsr)
+    j = jax_ref('geometric-pupil', lambda P, S: jd.wavefront_with_tangents(
+        doublet(jrt, jsr).to_surfaces(), P, S, WVL, seeds(jd)[:2], output='waves'),
+        jax_side.P, jax_side.S, bar=(1e-10, 1e-10, 1e-10, BAR))
     t = td.wavefront_with_tangents(tsys.to_surfaces(), jax_side.P, jax_side.S, WVL,
                                    seeds(td)[:2], output='waves')
     assert _rel(t[0], j[0]) <= 1e-10 and _rel(t[3], j[3]) <= BAR
@@ -209,13 +230,18 @@ def test_adjoint_gradient_matches_jax(jax_side, kind):
 def test_conic_newton_tangents_match_jax(jax_side):
     """The conic doublet: the curvature and conic seeds through the conic's
     intersection, and the irregularity's Newton solve on a conic base."""
-    jsys, tsys = doublet(jrt, jsr, conic=True), doublet(trt, tsr, conic=True)
-    js = [jd.seed_curvature(3), jd.seed_conic(4), jd.seed_irregularity(4, 3, 1, 10.0)]
+    tsys = doublet(trt, tsr, conic=True)
     ts = [td.seed_curvature(3), td.seed_conic(4), td.seed_irregularity(4, 3, 1, 10.0)]
-    j = jd.raytrace_with_tangents(jsys.to_surfaces(), jax_side.P, jax_side.S, WVL, js)
+
+    def conic_tangents(P, S):
+        js = [jd.seed_curvature(3), jd.seed_conic(4), jd.seed_irregularity(4, 3, 1, 10.0)]
+        j = jd.raytrace_with_tangents(doublet(jrt, jsr, conic=True).to_surfaces(), P, S, WVL, js)
+        return {what: getattr(j, what) for what in ('Pdot', 'Sdot', 'Ldot')}
+
+    j = jax_ref('conic-newton', conic_tangents, jax_side.P, jax_side.S, bar=BAR)
     t = td.raytrace_with_tangents(tsys.to_surfaces(), jax_side.P, jax_side.S, WVL, ts)
     for what in ('Pdot', 'Sdot', 'Ldot'):
-        assert _rel(getattr(t, what), getattr(j, what)) <= BAR
+        assert _rel(getattr(t, what), j[what]) <= BAR
     # against central differences of the perturbed trace (h = 1e-6)
     f = ta.engine._trace_fn(tsys.to_surfaces(), ts, jax_side.P, jax_side.S, WVL, None)
     h = 1e-6

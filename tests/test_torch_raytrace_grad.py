@@ -7,6 +7,8 @@ within 1e-9 relative of ``jax.grad`` in float64 on the CPU.  A tensor
 curvature is never static: at c = 0 it keeps the conic code paths and its
 gradient (the JAX package's eager ``jax.grad`` sees a concrete 0 there and
 takes the plane branch, which loses d/dc for the closed-form sphere).
+The JAX package's side is read from its record (``_jax_refs``) where it is
+current.
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.materials as jmat
 import prysm_tpu.x.raytracing as jrt
 import prysm_tpu_torch.x.materials as tmat
@@ -73,7 +76,8 @@ def test_grad_through_trace():
         return f
 
     c0 = 1 / 50.0
-    jv, jg = jax.value_and_grad(spot(jrt, jmat, jnp, jnp.asarray(P), jnp.asarray(S)))(c0)
+    jv, jg = jax_ref('trace', lambda P, S, c0: jax.value_and_grad(
+        spot(jrt, jmat, jnp, jnp.asarray(P), jnp.asarray(S)))(c0), P, S, c0, bar=(1e-12, REL))
     tv, tg = port_grad(spot(trt, tmat, torch, P, S), c0)
     assert tv == pytest.approx(float(jv), rel=1e-12)
     close(tg, jg)
@@ -92,8 +96,9 @@ def test_grad_through_newton_intersect():
     P = np.asarray([[0.0, 6.0, -5.0]])
     S = np.asarray([[0.0, 0.0, 1.0]])
     a0 = 1e-6
-    jg = jax.grad(lambda a: jrt.raytrace(asphere(jrt, jmat, a), jnp.asarray(P), jnp.asarray(S),
-                                         WVL).P[-1][0, 1])(a0)
+    jg = jax_ref('newton', lambda P, S, a0: jax.grad(lambda a: jrt.raytrace(
+        asphere(jrt, jmat, a), jnp.asarray(P), jnp.asarray(S), WVL).P[-1][0, 1])(a0),
+        P, S, a0, bar=REL)
     _, tg = port_grad(lambda a: trt.raytrace(asphere(trt, tmat, a), P, S, WVL).P[-1][0, 1], a0)
     close(tg, jg)
 
@@ -137,19 +142,26 @@ def _cfg6_loss_jax(sampling):
     return loss
 
 
+def _jax_cfg6(nrings, c0):
+    """The loss and gradient at ``c0``, and the gradient at another point of the design
+    space, as an optimizer's next step takes it."""
+    loss_j = _cfg6_loss_jax(jrt.Sampling.hex(nrings))
+    c0 = jnp.asarray(c0)
+    jv, jg = jax.value_and_grad(loss_j)(c0)
+    c1 = c0 * jnp.asarray([1.01, 0.98, 1.05])
+    return float(jv), jg, c1, jax.grad(loss_j)(c1)
+
+
 @pytest.mark.parametrize('nrings', [8, 16])
 def test_cfg6_curvature_gradient(nrings):
-    loss_j = _cfg6_loss_jax(jrt.Sampling.hex(nrings))
-    c0 = jnp.asarray(steps.CFG6_CURVATURES)
-    jv, jg = jax.value_and_grad(loss_j)(c0)
+    jv, jg, c1, jg1 = jax_ref('cfg6', _jax_cfg6, nrings, steps.CFG6_CURVATURES,
+                              bar=(1e-12, REL, REL, REL))
     step = steps.build_cfg6_grad(trt.Sampling.hex(nrings), device='cpu')
     tv, tg, rms = step()
     assert float(tv) == pytest.approx(float(jv), rel=1e-12)
     assert rms.shape == (3,)
     close(tg.numpy(), jg)
-    # another point of the design space, as an optimizer's next step takes it
-    c1 = c0 * jnp.asarray([1.01, 0.98, 1.05])
-    close(step(torch.tensor(np.asarray(c1)))[1].numpy(), jax.grad(loss_j)(c1))
+    close(step(torch.tensor(np.asarray(c1)))[1].numpy(), jg1)
 
 
 def test_tensor_zero_is_never_static():
@@ -176,12 +188,15 @@ def test_sphere_gradient_at_zero_curvature():
         y = trt.raytrace(singlet(trt, tmat, c), P, S, WVL).P[-1][:, 1]
         return torch.sqrt(torch.mean(y * y))
 
-    assert float(jax.grad(lambda c: jnp.sqrt(jnp.mean(jrt.raytrace(
-        singlet(jrt, jmat, c), jnp.asarray(P), jnp.asarray(S), WVL).P[-1][:, 1] ** 2)))(0.0)) == 0.0
     h = 1e-6
-    fd = (jspot(h) - jspot(-h)) / (2 * h)
+    g0, up, down, at0 = jax_ref('sphere-zero', lambda P, S, h: (float(jax.grad(
+        lambda c: jnp.sqrt(jnp.mean(jrt.raytrace(singlet(jrt, jmat, c), jnp.asarray(P),
+                                                 jnp.asarray(S), WVL).P[-1][:, 1] ** 2)))(0.0)),
+        jspot(h), jspot(-h), jspot(0.0)), P, S, h, bar=1e-13)
+    assert g0 == 0.0
+    fd = (up - down) / (2 * h)
     tv, tg = port_grad(tspot, 0.0)
-    assert tv == pytest.approx(jspot(0.0), rel=1e-13)
+    assert tv == pytest.approx(at0, rel=1e-13)
     assert abs(fd) > 1.0
     assert float(tg) == pytest.approx(fd, rel=1e-6)
     # the plane's trace, value for value
@@ -212,9 +227,11 @@ def test_freeform_gradient_at_zero_curvature(kind):
         return jnp.sum(jrt.raytrace(build(jrt, jmat, c), jnp.asarray(P), jnp.asarray(S),
                                     WVL).P[-1][:, 1] ** 2)
 
-    jg = float(jax.grad(jloss)(0.0))
     h = 1e-6
-    fd = (float(jloss(h)) - float(jloss(-h))) / (2 * h)
+    jg, up, down = jax_ref('freeform-zero', lambda P, S, h: (
+        float(jax.grad(jloss)(0.0)), float(jloss(h)), float(jloss(-h))), P, S, h,
+        bar=(REL, 1e-13, 1e-13))
+    fd = (up - down) / (2 * h)
     _, tg = port_grad(lambda c: torch.sum(trt.raytrace(build(trt, tmat, c), P, S,
                                                        WVL).P[-1][:, 1] ** 2), 0.0)
     assert abs(fd) > 1.0

@@ -6,8 +6,10 @@ packages into Agg figures (the builders of
 package) and compares what was plotted: each line's x/y data and label,
 each collection's offsets, coordinates and image array, the axes' labels
 and titles, and the warnings raised, at 1e-10 of each array's largest
-magnitude (NaN separators where the JAX package has them).  Last, the port's
-raytracing and parallel packages import with matplotlib blocked.
+magnitude (NaN separators where the JAX package has them); what the JAX
+package plotted is read from its record (``_jax_refs``) where it is current.
+Last, the port's raytracing and parallel packages import with matplotlib
+blocked.
 """
 import importlib
 import subprocess
@@ -20,6 +22,8 @@ import matplotlib
 import numpy as np
 import pytest
 import torch
+
+from _jax_refs import jax_ref
 
 matplotlib.use('Agg')
 
@@ -318,7 +322,7 @@ def _same_arrays(got, want, what):
 
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_port_plots_what_the_jax_package_plots(case):
-    want, want_warnings = _draw('prysm_tpu', case)
+    want, want_warnings = jax_ref('plot', _draw, 'prysm_tpu', case, bar=1e-10)
     got, got_warnings = _draw('prysm_tpu_torch', case)
     assert got_warnings == want_warnings
     assert len(got) == len(want), [r[:2] for r in got]

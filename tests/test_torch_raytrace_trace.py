@@ -6,14 +6,18 @@ of ``surfaces.py``'s table, bundles built to reach each failure code (TIR,
 miss, clip, Newton, evanescent), a mirror and a ``LinearGrating``, and a
 prescription carried over by ``interop.surfaces_from_numpy``.  Bars:
 positions and OPL within 1e-11 mm, direction cosines within 1e-12, and
-equal status; ``fit_from_trace`` within 1e-10.
+equal status; ``fit_from_trace`` within 1e-10.  The JAX package's traces of
+``both`` are read from their records (``_jax_refs``) where they are current.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 import prysm_tpu.x.materials as jmat
 import prysm_tpu.x.raytracing as jrt
 from prysm_tpu.x.raytracing import batch as jbatch
@@ -60,10 +64,20 @@ def ray_grid(half=4.0, n=9, z=-5.0, tilt=(0.02, -0.03)):
     return P, S / np.linalg.norm(S, axis=1, keepdims=True)
 
 
+def _jax_trace(build, P, S, kw):
+    j = jrt.raytrace(build(jrt, jmat), jnp.asarray(P), jnp.asarray(S), WVL, **kw)
+    out = {k: getattr(j, k) for k in ('P', 'S', 'OPL', 'status')}
+    if kw.get('keep_intermediates'):
+        out['intermediates'] = [{'Q_loc': i.Q_loc, 'n_hat': i.n_hat} for i in j.intermediates]
+    return out
+
+
 def both(build, P, S, **kw):
     """(port result, JAX result) of the surfaces build(rt, mat) on the same rays."""
     t = trt.raytrace(build(trt, tmat), P, S, WVL, **kw)
-    j = jrt.raytrace(build(jrt, jmat), jnp.asarray(P), jnp.asarray(S), WVL, **kw)
+    j = types.SimpleNamespace(**jax_ref('trace', _jax_trace, build, P, S, kw, bar=1e-13))
+    if kw.get('keep_intermediates'):
+        j.intermediates = [types.SimpleNamespace(**i) for i in j.intermediates]
     return t, j
 
 

@@ -10,7 +10,9 @@ its coefficient gradient to 1e-9 relative.  cfg3's geometry (2 rings of
 and a flat-top, partly excluded variant.  The keystone aperture at 96^2
 and 95^2: its windows and ids equal, its masks to 1e-12 absolute, because
 they ramp hypot(x, y) and test atan2(y, x), whose implementations in XLA
-and in torch differ in the last bit, and the ramp divides by dx.
+and in torch differ in the last bit, and the ramp divides by dx.  The JAX
+package's keystone aperture is read from its record (``_jax_refs``) where it
+is current.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu import segmented as jseg
 from prysm_tpu.coordinates import make_xy_grid as jax_make_xy_grid
 from prysm_tpu.polynomials import zernike_nm_seq as jax_zernike_nm_seq
@@ -163,23 +166,35 @@ KEYSTONE = dict(center_circle_diameter=0.5, rings=2, ring_radius=0.35,
                 segments_per_ring=(6, 9), radial_gap=0.02, rotation_per_ring=(10.0, None))
 
 
+KEYSTONE_PLAN = ('segment_ids', 'segment_windows', 'center_window', 'amp', 'center_mask',
+                 'segment_masks', 'segment_rotations')
+
+
+def _jax_keystone(x, y, cc, sc):
+    """The JAX package's keystone aperture: its plan, its OPD bases, and its OPD composed
+    from the coefficients ``cc`` (centre) and ``sc`` (segments)."""
+    jka = jseg.CompositeKeystoneAperture(x, y, **KEYSTONE)
+    plan = {k: getattr(jka, k) for k in KEYSTONE_PLAN}
+    jka.prepare_opd_bases(jax_zernike_nm_seq, NMS, jax_zernike_nm_seq, NMS)
+    return plan, jka.opd_bases, jka.compose_opd(jnp.asarray(cc), jnp.asarray(sc))
+
+
 @pytest.mark.parametrize('n', [96, 95])
 def test_keystone_aperture_matches_jax(n):
     x, y = _grid(n, diameter=2.2)
-    jka = jseg.CompositeKeystoneAperture(x, y, **KEYSTONE)
     ka = seg.CompositeKeystoneAperture(x, y, device='cpu', **KEYSTONE)
-    assert ka.segment_ids == jka.segment_ids and ka.segment_windows == jka.segment_windows
-    assert ka.center_window == jka.center_window
-    assert np.abs(ka.amp.numpy() - jka.amp).max() < 1e-12
-    assert np.abs(ka.center_mask.numpy() - jka.center_mask).max() < 1e-12
-    for m, jm in zip(ka.segment_masks, jka.segment_masks):
-        assert np.abs(m.numpy() - jm).max() < 1e-12
-    assert ka.segment_rotations == jka.segment_rotations
-    ka.prepare_opd_bases(zernike_nm_seq, NMS, zernike_nm_seq, NMS)
-    jka.prepare_opd_bases(jax_zernike_nm_seq, NMS, jax_zernike_nm_seq, NMS)
-    for b, jb in zip(ka.opd_bases, jka.opd_bases):
-        assert _rel(b.numpy(), jb) < 1e-9
     cc = np.random.default_rng(5).standard_normal(len(NMS))
     sc = np.random.default_rng(6).standard_normal((len(ka.segment_ids), len(NMS)))
-    assert _rel(ka.compose_opd(torch.from_numpy(cc), torch.from_numpy(sc)).numpy(),
-                jka.compose_opd(jnp.asarray(cc), jnp.asarray(sc))) < 1e-9
+    jka, bases, opd = jax_ref('keystone', _jax_keystone, x, y, cc, sc, bar=1e-12)
+    assert ka.segment_ids == jka['segment_ids']
+    assert ka.segment_windows == jka['segment_windows']
+    assert ka.center_window == jka['center_window']
+    assert np.abs(ka.amp.numpy() - jka['amp']).max() < 1e-12
+    assert np.abs(ka.center_mask.numpy() - jka['center_mask']).max() < 1e-12
+    for m, jm in zip(ka.segment_masks, jka['segment_masks']):
+        assert np.abs(m.numpy() - jm).max() < 1e-12
+    assert ka.segment_rotations == jka['segment_rotations']
+    ka.prepare_opd_bases(zernike_nm_seq, NMS, zernike_nm_seq, NMS)
+    for b, jb in zip(ka.opd_bases, bases):
+        assert _rel(b.numpy(), jb) < 1e-9
+    assert _rel(ka.compose_opd(torch.from_numpy(cc), torch.from_numpy(sc)).numpy(), opd) < 1e-9

@@ -8,7 +8,8 @@ JAX side is the body of ``bench.py`` cfg1/cfg2 and of
 the port through ``prysm_tpu_torch.interop``.  Bar: 1e-9 relative for
 losses, gradients, PSF and MTF: float64 throughout, with FFT and matmul
 orders the only difference.  The port's explicit ``*_adjoint`` chains are
-held against its autograd gradients at 1e-10.
+held against its autograd gradients at 1e-10.  The JAX package's cfg1 and cfg2
+runs are read from their records (``_jax_refs``) where they are current.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.coordinates import make_xy_grid, cart_to_polar
 from prysm_tpu.geometry import circle_sdf, antialias
 from prysm_tpu.otf import mtf_from_psf as jax_mtf_from_psf
@@ -73,7 +75,8 @@ def _jax_cfg1(N):
 
 
 def _jax_cfg2(N, fN, prec):
-    """bench.py cfg2's loss and gradient at size N (its mode-stack path), and its plan."""
+    """bench.py cfg2's loss and gradient at size N (its mode-stack path), and its plan's
+    fields (``PLAN``)."""
     r, t, amp, dx = _jax_pupil(N)
     plan = jax_prepare_executor(dx, (N, N), 0.25 * 256 / fN, fN, WVL, EFL,
                                 matmul_precision=prec)
@@ -86,18 +89,19 @@ def _jax_cfg2(N, fN, prec):
     I_meas = intensity(jnp.asarray(COEFS) * 0.5)
     value, grad = jax.value_and_grad(
         lambda c: jnp.sum((intensity(c) - I_meas) ** 2))(jnp.asarray(COEFS))
-    return (r, t, amp, dx), plan, value, grad
+    return (r, t, amp, dx), {k: getattr(plan, k) for k in PLAN}, value, grad
+
+
+PLAN = ('Ex_re', 'Ex_im', 'Ey_re', 'Ey_im', 'norm', 'forward_left_first', 'adjoint_left_first',
+        'pupil_dx', 'focal_dx')
 
 
 def _carry_plan(plan, prec):
-    return interop.mdft_from_numpy(
-        np.asarray(plan.Ex_re), np.asarray(plan.Ex_im), np.asarray(plan.Ey_re),
-        np.asarray(plan.Ey_im), plan.norm, plan.forward_left_first,
-        plan.adjoint_left_first, plan.pupil_dx, plan.focal_dx, prec, device='cpu')
+    return interop.mdft_from_numpy(*(plan[k] for k in PLAN), prec, device='cpu')
 
 
 def test_cfg1_step_matches_jax():
-    geom, value, grad, mtf = _jax_cfg1(64)
+    geom, value, grad, mtf = jax_ref('cfg1', _jax_cfg1, 64, bar=1e-9)
     loss, g, m = steps.build_cfg1_step(_port_pupil(*geom))(torch.from_numpy(COEFS))
     assert abs(float(loss) - float(value)) / abs(float(value)) < 1e-9
     assert _rel(g.numpy(), grad) < 1e-9
@@ -107,7 +111,7 @@ def test_cfg1_step_matches_jax():
 @pytest.mark.parametrize('fused', [True, False], ids=['fused', 'mode-stack'])
 @pytest.mark.parametrize('prec', [None, 'high'])
 def test_cfg2_step_matches_jax(fused, prec):
-    geom, plan, value, grad = _jax_cfg2(128, 32, prec)
+    geom, plan, value, grad = jax_ref('cfg2', _jax_cfg2, 128, 32, prec, bar=1e-9)
     step = steps.build_cfg2_step(_port_pupil(*geom), _carry_plan(plan, prec), fused=fused)
     loss, g = step(torch.from_numpy(COEFS))
     assert abs(float(loss) - float(value)) / abs(float(value)) < 1e-9

@@ -9,9 +9,11 @@ to the actuators and the coefficients (autograd against ``jax.grad``), and
 the Shack-Hartmann frame (4 x 4 lenslets of 32 samples).  Bars: 1e-12
 relative for the OPD, the PSF, the loss, both gradients and the frame; the
 lenslet screen 1e-12; the hand-written adjoint chain of an unfolded DM
-equal to autograd to 1e-13.
+equal to autograd to 1e-13.  The JAX composition's values are read from their
+record (``_jax_refs``) where it is current.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _jax_refs import jax_ref
 from prysm_tpu.coordinates import make_xy_grid, cart_to_polar
 from prysm_tpu.geometry import circle_sdf, antialias, gaussian
 from prysm_tpu.polynomials import zernike_nm_seq, sum_of_2d_modes
@@ -83,9 +86,20 @@ class _JaxStep:
         return jnp.abs(E) ** 2
 
 
+def _jax_values(acts, coefs):
+    """What the tests compare of the JAX step at the state (acts, coefs)."""
+    step = _JaxStep()
+    a, c = jnp.asarray(acts), jnp.asarray(coefs)
+    loss, (ga, gc) = jax.value_and_grad(step.loss, argnums=(0, 1))(a, c)
+    return dict(opd=step.opd(a, c), I0=step.I0, loss=float(loss), ga=ga, gc=gc,
+                screen=step.screen, sensor=step.sensor(a, c), ifn=step.dm.ifn, r=step.r,
+                t=step.t, amp=step.amp, dx=step.dx)
+
+
 @pytest.fixture(scope='module')
 def jax_step():
-    return _JaxStep()
+    coefs, acts = steps.wfc_state(NACT)
+    return types.SimpleNamespace(**jax_ref('step', _jax_values, acts, coefs, bar=BAR))
 
 
 @pytest.fixture
@@ -112,29 +126,26 @@ def test_state_and_geometry(port_step):
 def test_step_matches_jax(jax_step, fused):
     w = steps.build_wavefront_control(N, nact=NACT, fN=FN, fused=fused,
                                       dtype=torch.float64, device='cpu')
-    coefs, acts = steps.wfc_state(NACT)
-    a, c = jnp.asarray(acts), jnp.asarray(coefs)
-    assert _rel(w.opd(w.dm.actuators, w.pupil.coefs), jax_step.opd(a, c)) <= BAR
+    assert _rel(w.opd(w.dm.actuators, w.pupil.coefs), jax_step.opd) <= BAR
     assert _rel(w.I_ref, jax_step.I0) <= BAR
     loss, ga, gc = w(w.dm.actuators, w.pupil.coefs)
-    jl, (jga, jgc) = jax.value_and_grad(jax_step.loss, argnums=(0, 1))(a, c)
+    jl, jga, jgc = jax_step.loss, jax_step.ga, jax_step.gc
     assert float(loss) == pytest.approx(float(jl), rel=BAR)
     assert _rel(ga, jga) <= BAR and _rel(gc, jgc) <= BAR
     assert ga.shape == (NACT, NACT) and gc.shape == (36,)
 
 
 def test_sensor_frame_matches_jax(jax_step, port_step):
-    coefs, acts = steps.wfc_state(NACT)
     assert _rel(port_step.screen, jax_step.screen) <= BAR
     frame = port_step.sensor(port_step.dm.actuators, port_step.pupil.coefs)
     assert not frame.requires_grad and frame.shape == (N, N)
-    assert _rel(frame, jax_step.sensor(jnp.asarray(acts), jnp.asarray(coefs))) <= BAR
+    assert _rel(frame, jax_step.sensor) <= BAR
 
 
 def test_carried_dm_and_pupil_match_jax(jax_step):
     """``interop.dm_from_numpy`` and ``pupil_from_numpy`` carry the JAX package's state in."""
     coefs, acts = steps.wfc_state(NACT)
-    dm = interop.dm_from_numpy(np.asarray(jax_step.dm.ifn), N, NACT, SEP, rot=steps.WFC_ROT,
+    dm = interop.dm_from_numpy(np.asarray(jax_step.ifn), N, NACT, SEP, rot=steps.WFC_ROT,
                                actuators=acts, device='cpu')
     pupil = interop.pupil_from_numpy(np.asarray(jax_step.r), np.asarray(jax_step.t),
                                      np.asarray(jax_step.amp), jax_step.dx, coefs, steps.WFC_NMS,
@@ -142,8 +153,7 @@ def test_carried_dm_and_pupil_match_jax(jax_step):
     w = steps.build_wavefront_control(N, nact=NACT, fN=FN, pupil=pupil, dm=dm,
                                       device='cpu')
     loss, ga, gc = w(dm.actuators, pupil.coefs)
-    jl, (jga, jgc) = jax.value_and_grad(jax_step.loss, argnums=(0, 1))(jnp.asarray(acts),
-                                                                       jnp.asarray(coefs))
+    jl, jga, jgc = jax_step.loss, jax_step.ga, jax_step.gc
     assert float(loss) == pytest.approx(float(jl), rel=BAR)
     assert _rel(ga, jga) <= BAR and _rel(gc, jgc) <= BAR
 
